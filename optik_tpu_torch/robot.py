@@ -1,0 +1,244 @@
+"""Robot facade: the user-facing API of ``optik_tpu.Robot``, for the slice of
+it the port runs so far.
+
+  * ``Robot.from_urdf_file(path, base_link, ee_link)`` (and ``_str``)
+  * ``num_positions()``, ``joint_limits()``, ``set_parallelism(n)``
+  * ``random_configuration()``
+  * ``fk(x, ee_offset=None) -> 4x4`` and ``fk_batch``
+  * ``ik(config, target, x0, ee_offset=None) -> (list, cost) | None`` and
+    ``ik_batch``
+
+A ``Robot`` lives on one explicit ``device`` (default ``"cuda"``; on a
+machine without a card that default raises rather than switching to the
+CPU).  ``ik_batch`` on CUDA runs the hand-written LM kernel
+(``ops/cuda/lm_kernel.py``); on the CPU it runs the plain torch loop
+(``solver/ik.build_batch_solver``).  What the kernel does not run yet raises
+``NotImplementedError`` on CUDA, naming its ROADMAP item; nothing falls back
+quietly.  ``joint_jacobian``, ``jacobian_batch``, the diff-IK entry points,
+unlimited restart rounds (``max_restarts=0``), overflow rescue, the cascade
+and sharding are not ported yet (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from .config import SolverConfig
+from .models.chain import ChainSpec
+from .ops import soa
+from .ops.cuda import lm_kernel
+from .solver import ik as ik_mod
+from .utils.precision import use_full_f32_matmuls
+
+ArrayLike = Union[np.ndarray, torch.Tensor, "list", "tuple"]
+
+
+def _parse_pose(pose) -> Tuple[np.ndarray, np.ndarray]:
+    """4x4 row-major -> (R, t) float64; validates rigidity (optik-py
+    ``parse_pose``: a non-rigid input raises "invalid target transform
+    specified")."""
+    m = np.asarray(pose, dtype=np.float64)
+    if m.shape != (4, 4):
+        raise ValueError("invalid target transform specified")
+    r = m[:3, :3]
+    if (not np.allclose(r @ r.T, np.eye(3), atol=1e-6)
+            or not np.isclose(np.linalg.det(r), 1.0, atol=1e-6)
+            or not np.allclose(m[3], [0.0, 0.0, 0.0, 1.0], atol=1e-6)):
+        raise ValueError("invalid target transform specified")
+    return r.copy(), m[:3, 3].copy()
+
+
+class Robot:
+    """A serial-chain robot bound to one torch device and dtype."""
+
+    def __init__(self, spec: ChainSpec, dtype: Optional[torch.dtype] = None,
+                 device: "str | torch.device" = "cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Robot(device='cuda') but torch.cuda.is_available() is "
+                "False; pass device='cpu' for the plain torch solver")
+        use_full_f32_matmuls()
+        self.spec = spec
+        self.dtype = dtype or torch.float32
+        self._consts = soa.chain_constants(spec)
+        self._rng = np.random.default_rng()
+        self._solvers = {}
+        self._parallelism_noted = False
+
+    # --- constructors -----------------------------------------------------
+
+    @staticmethod
+    def from_urdf_file(path: "str | os.PathLike[str]", base_link: str,
+                       ee_link: str, dtype: Optional[torch.dtype] = None,
+                       device: "str | torch.device" = "cuda") -> "Robot":
+        return Robot(ChainSpec.from_urdf_file(path, base_link, ee_link),
+                     dtype=dtype, device=device)
+
+    @staticmethod
+    def from_urdf_str(urdf: str, base_link: str, ee_link: str,
+                      dtype: Optional[torch.dtype] = None,
+                      device: "str | torch.device" = "cuda") -> "Robot":
+        return Robot(ChainSpec.from_urdf_str(urdf, base_link, ee_link),
+                     dtype=dtype, device=device)
+
+    # --- introspection ----------------------------------------------------
+
+    def num_positions(self) -> int:
+        return self.spec.num_positions
+
+    def joint_limits(self) -> Tuple[np.ndarray, np.ndarray]:
+        return self.spec.joint_limits()
+
+    def set_parallelism(self, n: int) -> None:
+        """Reference-API compatibility no-op (lib.rs:66-72): occupancy is
+        set by batch shapes and results are deterministic at any size."""
+        if not self._parallelism_noted:
+            logging.getLogger(__name__).info(
+                "optik_tpu_torch: set_parallelism(%d) is a no-op", n)
+            self._parallelism_noted = True
+
+    def random_configuration(self, rng: Optional[np.random.Generator] = None
+                             ) -> np.ndarray:
+        """Uniform sample within the joint limits (unbounded: [-pi, pi])."""
+        rng = rng or self._rng
+        lo, hi = self.joint_limits()
+        lo = np.where(np.isfinite(lo), lo, -np.pi)
+        hi = np.where(np.isfinite(hi), hi, np.pi)
+        return rng.uniform(lo, hi)
+
+    # --- kinematics -------------------------------------------------------
+
+    def _tensor(self, v) -> torch.Tensor:
+        return ik_mod.as_tensor(v, self.dtype, self.device)
+
+    def _ee_offset(self, ee_offset):
+        """(R, t) tensors of the offset, or (None, None)."""
+        if ee_offset is None:
+            return None, None
+        r, t = _parse_pose(ee_offset)
+        return self._tensor(r), self._tensor(t)
+
+    def fk_batch(self, x: ArrayLike, ee_offset: Optional[ArrayLike] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Batched EE poses: (..., A) -> ((..., 3, 3), (..., 3)) tensors."""
+        x = self._tensor(x)
+        ee_r, ee_t = self._ee_offset(ee_offset)
+        eem = eev = None
+        if ee_r is not None:
+            eem = [[ee_r[i, j] for j in range(3)] for i in range(3)]
+            eev = [ee_t[i] for i in range(3)]
+        comps = [x[..., j] for j in range(self.num_positions())]
+        _, r_ee, t_ee = soa.fk_with_ee(self._consts, comps, eem, eev)
+        lane = x.shape[:-1]
+
+        def full(v):
+            return torch.broadcast_to(torch.as_tensor(
+                v, dtype=self.dtype, device=self.device), lane)
+
+        r = torch.stack([torch.stack([full(r_ee[i][j]) for j in range(3)],
+                                     dim=-1) for i in range(3)], dim=-2)
+        t = torch.stack([full(t_ee[i]) for i in range(3)], dim=-1)
+        return r, t
+
+    def fk(self, x: ArrayLike,
+           ee_offset: Optional[ArrayLike] = None) -> np.ndarray:
+        """EE pose as a 4x4 row-major matrix (optik-py/src/lib.rs:103-115)."""
+        x = self._check_q(x, "x")
+        r, t = self.fk_batch(x[None], ee_offset)
+        m = np.eye(4)
+        m[:3, :3] = r[0].double().cpu().numpy()
+        m[:3, 3] = t[0].double().cpu().numpy()
+        return m
+
+    # --- inverse kinematics -----------------------------------------------
+
+    def _check_q(self, x, name) -> np.ndarray:
+        x = np.asarray(x, dtype=np.float64)
+        if x.shape != (self.num_positions(),):
+            raise ValueError(f"len({name}) != num_positions")
+        return x
+
+    def _check_seeds(self, x0) -> None:
+        """Raise if any seed lies outside the joint limits (lib.rs:251-254).
+
+        Tensor seeds are checked where they lie, fetching one boolean."""
+        lo, hi = self.joint_limits()
+        if isinstance(x0, torch.Tensor):
+            lo_t = torch.as_tensor(lo, dtype=x0.dtype, device=x0.device)
+            hi_t = torch.as_tensor(hi, dtype=x0.dtype, device=x0.device)
+            bad = bool(((x0 < lo_t) | (x0 > hi_t)).any())
+        else:
+            x0 = np.asarray(x0, dtype=np.float64)
+            bad = bool(np.any(x0 < lo) or np.any(x0 > hi))
+        if bad:
+            raise ValueError("seed joint position outside of joint limits")
+
+    def ik(self, config: SolverConfig, target: ArrayLike, x0: ArrayLike,
+           ee_offset: Optional[ArrayLike] = None
+           ) -> Optional[Tuple[List[float], float]]:
+        """Single-pose IK; returns (solution, cost) or None (lib.rs:241-415).
+
+        Runs ``ik_batch`` at B = 1.  On CUDA the kernel evaluates atan2 and
+        sin/cos as f32 polynomials (~1e-7 abs error), so found-ness of
+        marginal poses (cost within ~1e-7 of tol_f) can differ from the
+        exact-libm plain path on the CPU.
+        """
+        x0 = self._check_q(x0, "x0")
+        self._check_seeds(x0)
+        tgt_r, tgt_t = _parse_pose(target)
+        res = self.ik_batch(config, tgt_r[None], tgt_t[None], x0[None],
+                            ee_offset=ee_offset, validate_seeds=False)
+        if not bool(res.found[0]):
+            return None
+        return (res.x[0].double().cpu().tolist(), float(res.cost[0]))
+
+    def _batch_solver(self, config: SolverConfig, ee_offset):
+        """The cached solver for (config, ee_offset) on this device."""
+        ee_key = None if ee_offset is None else tuple(
+            np.asarray(v, np.float64).tobytes() for v in ee_offset)
+        key = (config, ee_key)
+        fn = self._solvers.get(key)
+        if fn is None:
+            if self.device.type == "cuda":
+                fn = lm_kernel.build_kernel_solver(self.spec, config,
+                                                   ee_offset=ee_offset)
+            else:
+                fn = ik_mod.build_batch_solver(self.spec, config, self.dtype,
+                                               self.device)
+            self._solvers[key] = fn
+        return fn
+
+    def ik_batch(self, config: SolverConfig, tgt_r: ArrayLike,
+                 tgt_t: ArrayLike, x0: ArrayLike,
+                 ee_offset: Optional[ArrayLike] = None,
+                 validate_seeds: bool = True) -> ik_mod.IKResult:
+        """Batched IK over B poses: (B,3,3), (B,3), (B,A) -> IKResult.
+
+        Seeds outside the joint limits raise, as in the scalar path;
+        ``validate_seeds=False`` skips that check (for seeds in the limits
+        by construction).  On CUDA this runs the LM kernel in Speed mode
+        and raises ``TypeError`` unless the Robot's dtype is float32.
+        """
+        if config.max_restarts == 0:
+            raise NotImplementedError(
+                "max_restarts=0 (unlimited restart rounds, "
+                "Robot._ik_batch_unlimited) is not ported yet: ROADMAP "
+                "Queue 1 item 3")
+        if validate_seeds:
+            self._check_seeds(x0)
+        tgt_r, tgt_t, x0 = self._tensor(tgt_r), self._tensor(tgt_t), \
+            self._tensor(x0)
+        ee_pair = None if ee_offset is None else _parse_pose(ee_offset)
+        fn = self._batch_solver(config, ee_pair)
+        if self.device.type == "cuda":
+            return fn(tgt_r, tgt_t, x0)
+        ee_r = ee_t = None
+        if ee_pair is not None:
+            ee_r, ee_t = self._tensor(ee_pair[0]), self._tensor(ee_pair[1])
+        return fn(tgt_r, tgt_t, x0, ee_r, ee_t)

@@ -48,6 +48,24 @@ def pytest_configure(config):
         "hardware (needs OPTIK_TPU_TESTS=1)")
     config.addinivalue_line(
         "markers", "slow: multi-process / long-running tests")
+    config.addinivalue_line(
+        "markers", "cuda: runs the port's CUDA kernel on an NVIDIA card "
+        "(skips when torch.cuda.is_available() is false)")
+
+
+import pytest  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _skip_cuda_without_card(request):
+    # Decided per test, inside a fixture, so every worker collects the
+    # same tests whether or not a card is present.
+    if request.node.get_closest_marker("cuda") is not None:
+        import torch
+
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA card: run python -m pytest "
+                        "--noconftest tests/test_torch_cuda.py on a GPU host")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,172 @@
+"""The slice as a whole: the port's Robot against the JAX package's Robot,
+plus the port's import boundary.
+
+``ik_batch`` runs the main configuration (Speed, 64 restarts, 8 lanes, 32
+iterations, tol_f 1e-6) at f64 on the CPU through both packages' plain
+paths.  Tolerance for x: 1e-8 (see tests/test_torch_lm.py: operation order
+differs at the last bit and ~30 LM steps amplify it).  ``fk`` runs the
+same float64 operations on both sides: 1e-12.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import optik_tpu
+from optik_tpu.models import asset_path
+
+import optik_tpu_torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+MAIN = dict(max_restarts=64, seed_batch=8, max_iters=32, tol_f=1e-6)
+B = 32
+
+
+@pytest.fixture(scope="module")
+def robots():
+    args = (asset_path("panda.urdf"), "panda_link0", "panda_hand_tcp")
+    return (optik_tpu.Robot.from_urdf_file(*args, dtype=jnp.float64),
+            optik_tpu_torch.Robot.from_urdf_file(*args, dtype=torch.float64,
+                                                 device="cpu"))
+
+
+def test_ik_batch_matches_jax_main_config(robots):
+    jr, tr_ = robots
+    rng = np.random.default_rng(5)
+    lo, hi = jr.joint_limits()
+    rot, trans = jr.fk_batch(rng.uniform(lo, hi, size=(B, 7)))
+    rot, trans = np.asarray(rot), np.asarray(trans)
+    x0 = rng.uniform(lo, hi, size=(B, 7))
+    ref = jr.ik_batch(optik_tpu.SolverConfig(**MAIN), rot, trans, x0)
+    got = tr_.ik_batch(optik_tpu_torch.SolverConfig(**MAIN), rot, trans, x0)
+
+    found = np.asarray(ref.found)
+    assert found.sum() >= B - 1
+    np.testing.assert_array_equal(got.found.numpy(), found)
+    np.testing.assert_allclose(got.x.numpy()[found], np.asarray(ref.x)[found],
+                               rtol=0, atol=1e-8)
+    assert np.all(got.cost.numpy()[found] <= MAIN["tol_f"])
+    # FK of every found solution reaches its target (cost <= 1e-6 is a
+    # residual of ~1e-3).
+    r_got, t_got = tr_.fk_batch(got.x[got.found])
+    np.testing.assert_allclose(r_got.numpy(), rot[found], atol=2e-3)
+    np.testing.assert_allclose(t_got.numpy(), trans[found], atol=2e-3)
+
+
+def test_fk_matches_jax(robots):
+    jr, tr_ = robots
+    rng = np.random.default_rng(6)
+    ee = np.eye(4)
+    ee[:3, :3] = [[0.0, 0.0, 1.0], [0.0, 1.0, 0.0], [-1.0, 0.0, 0.0]]
+    ee[:3, 3] = [0.01, 0.02, -0.1]
+    for _ in range(4):
+        q = tr_.random_configuration(rng)
+        np.testing.assert_allclose(tr_.fk(q), jr.fk(q), rtol=0, atol=1e-12)
+        np.testing.assert_allclose(tr_.fk(q, ee), jr.fk(q, ee), rtol=0,
+                                   atol=1e-12)
+    qs = rng.uniform(*jr.joint_limits(), size=(5, 7))
+    for got, ref in zip(tr_.fk_batch(qs, ee), jr.fk_batch(qs, ee)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                                   atol=1e-12)
+
+
+def test_ik_single_pose(robots):
+    jr, tr_ = robots
+    cfg = optik_tpu_torch.SolverConfig(**MAIN)
+    q = tr_.random_configuration(np.random.default_rng(7))
+    target = tr_.fk(q)
+    sol = tr_.ik(cfg, target, np.zeros(7).clip(*tr_.joint_limits()))
+    assert sol is not None
+    x, cost = sol
+    assert len(x) == 7 and cost <= cfg.tol_f
+    np.testing.assert_allclose(tr_.fk(np.array(x)), target, atol=2e-3)
+    # Unreachable target: None, as in the reference.
+    far = target.copy()
+    far[:3, 3] += 10.0
+    assert tr_.ik(cfg.replace(max_restarts=8), far,
+                  np.zeros(7).clip(*tr_.joint_limits())) is None
+
+
+def _error(fn):
+    with pytest.raises(ValueError) as info:
+        fn()
+    return str(info.value)
+
+
+def test_error_strings_match_jax(robots):
+    jr, tr_ = robots
+    jc = optik_tpu.SolverConfig(**MAIN)
+    tc = optik_tpu_torch.SolverConfig(**MAIN)
+    x0 = np.zeros(7).clip(*jr.joint_limits())
+    hi = jr.joint_limits()[1]
+    cases = [
+        (lambda r, c: r.ik(c, np.eye(4) * 2.0, x0),
+         "invalid target transform specified"),
+        (lambda r, c: r.ik(c, np.eye(3), x0),
+         "invalid target transform specified"),
+        (lambda r, c: r.ik(c, np.eye(4), x0[:3]), "len(x0) != num_positions"),
+        (lambda r, c: r.ik(c, np.eye(4), hi + 1.0),
+         "seed joint position outside of joint limits"),
+        (lambda r, c: r.ik_batch(c, np.eye(3)[None], np.zeros((1, 3)),
+                                 (hi + 1.0)[None]),
+         "seed joint position outside of joint limits"),
+        (lambda r, c: r.fk(np.zeros(3)), "len(x) != num_positions"),
+    ]
+    for fn, msg in cases:
+        assert _error(lambda: fn(jr, jc)) == msg
+        assert _error(lambda: fn(tr_, tc)) == msg
+
+
+def test_device_defaults_and_unported_options(robots, monkeypatch):
+    _, tr_ = robots
+    assert tr_.num_positions() == 7
+    tr_.set_parallelism(4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tr_.ik_batch(optik_tpu_torch.SolverConfig(max_restarts=0),
+                     np.eye(3)[None], np.zeros((1, 3)), np.zeros((1, 7)),
+                     validate_seeds=False)
+    # The default device is the card; without one it raises instead of
+    # moving to the CPU.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        optik_tpu_torch.Robot(tr_.spec)
+
+
+def test_import_adds_no_jax_module():
+    code = ("import sys\n"
+            "before = {m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'optik_tpu')}\n"
+            "import optik_tpu_torch, optik_tpu_torch.robot\n"
+            "after = {m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'optik_tpu')}\n"
+            "print(sorted(after - before))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_sources_import_no_jax():
+    files = sorted((REPO / "optik_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        bad = {m for m in _imported_roots(path)
+               if m in ("jax", "jaxlib", "optik_tpu")}
+        assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
