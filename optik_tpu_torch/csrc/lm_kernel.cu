@@ -7,31 +7,54 @@
 // It computes the same function: per lane, FK + SE(3)-log residual + 6xA
 // task Jacobian, the damped Gauss-Newton step -J^T (J J^T + lam I)^-1 e by an
 // unrolled 6x6 Cholesky, box projection, Nielsen damping, the NLopt-style
-// stopping tests, continuous reseeding from the restart seed table, and the
-// Speed-mode pose freeze.  The plain torch version of the same function is
-// optik_tpu_torch/ops/cuda/lm_kernel.py:solve_plain.
+// stopping tests, continuous reseeding from the restart seed table, the
+// Speed-mode pose freeze, Quality mode (full restart budget, per-lane best
+// success by distance to the caller's seed, optional per-pose success cap)
+// and the per-axis objective weights.  The plain torch version of the same
+// function is optik_tpu_torch/ops/cuda/lm_kernel.py:solve_plain.
 //
-// What bounds it on this card: FP32 and SFU throughput (a lane-iteration is a few
-// thousand dependent FP32 operations, with rsqrt, sqrt and IEEE divisions),
-// registers (about 75 live state values per lane plus the FK temporaries)
-// and the occupancy they allow.  Every contraction is at most 6x7 per lane,
-// so tensor cores and TMA are not the lever; device memory is touched only to
-// load the seeds and targets and to store the results.
+// What bounds it on this card: FP32 and SFU throughput (a lane-iteration is
+// a few thousand dependent FP32 operations, with rsqrt, sqrt and IEEE
+// divisions), registers (about 75 live state values per lane plus the FK
+// temporaries) and the occupancy they allow.  Every contraction is at most
+// 6x7 per lane, so tensor cores and TMA are not the lever; device memory is
+// touched only to load the seeds and targets and to store the results.  By
+// hand count a 7-DoF lane-iteration is 3,120 FP32 operations (lm_kernel.py:
+// fp32_ops_per_lane_iter).  On an NVIDIA H100 80GB HBM3 at 700.00 W
+// (chip_smoke.py: 131,072 Panda poses, 8 lanes, 64 restarts) the inputs
+// need 37 GFLOP against 79 MB, a bound of 0.56 ms by operations where the
+// bytes would take 0.02 ms, and the kernel takes 6.3 ms: warps wait for
+// their slowest pose (they run twice the lane-iterations the lanes need)
+// and 8 resident warps per SM leave the dependent chains exposed.
 //
 // Design (not the TPU block layout):
-//   * One thread per lane l = pose * S + s; all state lives in registers.
-//   * Inputs are SoA: seed component p of lane l at seeds[p * L + l] (lane-
-//     major, L = B * S), target component c of pose b at tgt[c * B + b] (a
-//     pose's S lanes read one address, a broadcast within the warp).  Loads
-//     coalesce.
+//   * One thread per lane; all state lives in registers.  A pose's S lanes
+//     sit in Sp consecutive threads, Sp the next divisor of 32 at or above S
+//     (64 for 32 < S <= 64); threads s >= S of a pose are dead lanes that
+//     start stopped, are never written out and are not counted as work.
+//   * Inputs are SoA: seed component p of lane l = pose * S + s at
+//     seeds[p * L + l] (lane-major, L = B * S), target component c of pose b
+//     at tgt[c * B + b] (a pose's lanes read one address, a broadcast within
+//     the warp).  Loads coalesce when Sp == S.
 //   * The seed for restart index k is table[k * A + p]: a plain gather from
 //     the (R, A) table.  The TPU kernel's select chain existed only because
 //     the TPU cannot gather.
-//   * Chain constants travel in a by-value kernel parameter struct; the
-//     kernel is templated on the DoF A (instantiated for 1..10).  Static
-//     0/+-1 terms are not folded yet.
-//   * A pose's S lanes are contiguous inside one warp (S divides 32), so the
-//     Speed-mode group freeze is a __ballot_sync over the pose's lane mask.
+//   * Chain constants travel in a by-value kernel parameter struct.  The
+//     DoF, the mode, the weighting and the two-warp pose layout are
+//     compile-time (-DOPTIK_DOF, -DOPTIK_QUALITY, -DOPTIK_WEIGHTED,
+//     -DOPTIK_WIDE): a library holds one instantiation and is built when a
+//     solve first needs it, so the Speed / identity-weights kernel carries
+//     none of the other variants' registers.  Static 0/+-1 chain terms are
+//     not folded yet.
+//   * For Sp <= 32 a pose's lanes are contiguous inside one warp: the
+//     Speed-mode group freeze is a __ballot_sync over the pose's lane mask,
+//     the Quality cap's group sum a shuffle butterfly over Sp lanes.
+//   * For Sp == 64 a pose spans the two warps of a pair.  Uncapped Quality
+//     needs no traffic between them.  Speed freeze and the Quality cap
+//     (OPTIK_WIDE) exchange one word per warp and iteration through shared
+//     memory, double-buffered by iteration parity, around one named barrier
+//     per pair (bar.sync id, 64); the pair's exit test is shared, so both
+//     warps arrive at every barrier the same number of times.
 //   * Each warp leaves its loop on its own once all its lanes have stopped:
 //     no lane waits for a straggler in another warp.  The iteration counter
 //     is warp-uniform, so "first iteration" keeps its meaning, and stopped
@@ -43,7 +66,8 @@
 //     library is built without --use_fast_math).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o liboptik_lm.so lm_kernel.cu
+//        -Xcompiler -fPIC -DOPTIK_DOF=7 [-DOPTIK_QUALITY=1] [-DOPTIK_WEIGHTED=1]
+//        [-DOPTIK_WIDE=1] -o liboptik_lm.so lm_kernel.cu
 // The C entry point optik_lm_solve returns cudaGetLastError() after the
 // launch (or a negative code for invalid arguments) and is bound with ctypes.
 
@@ -51,9 +75,28 @@
 #include <math.h>
 #include <stdint.h>
 
+#ifndef OPTIK_DOF
+#error "build with -DOPTIK_DOF=<1..10>"
+#endif
+#ifndef OPTIK_QUALITY
+#define OPTIK_QUALITY 0
+#endif
+#ifndef OPTIK_WEIGHTED
+#define OPTIK_WEIGHTED 0
+#endif
+#ifndef OPTIK_WIDE
+#define OPTIK_WIDE 0
+#endif
+
 namespace {
 
+constexpr int kDof = OPTIK_DOF;
+constexpr bool kQuality = OPTIK_QUALITY != 0;
+constexpr bool kWeighted = OPTIK_WEIGHTED != 0;
+constexpr bool kWide = OPTIK_WIDE != 0;
 constexpr int kMaxDof = 10;
+static_assert(kDof >= 1 && kDof <= kMaxDof, "OPTIK_DOF must be 1..10");
+constexpr int kNumOpts = 19;
 constexpr int kBlockThreads = 128;
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -86,6 +129,13 @@ struct Opts {
   float tol_f, tol_df, tol_dx;
   bool f_is_success, df_is_success, dx_is_success, use_dx;
   float lam_init, lam_min, lam_max;
+  // Per-axis objective weights (target frame) and whether each triple is
+  // the identity; read by the weighted instantiation only.
+  float wl[3], wa[3];
+  bool lin_id, ang_id;
+  // Quality: freeze a pose once its lanes completed this many successful
+  // attempts (0 = off).
+  int cap;
 };
 
 // max / min that propagate a NaN in `a`, as jnp.maximum and torch.clamp do
@@ -333,9 +383,23 @@ __device__ __forceinline__ void se3_right_jacobian_blocks(const float* w, const 
 
 // --- the fused residual + task Jacobian (residual_and_jtask) ----------------
 
-template <int A>
+// y = m * v for a row-major 3x3 block, summed left to right as the plain
+// version's folded 6x6 product does.
+__device__ __forceinline__ void weight3(const float* m, float v0, float v1, float v2,
+                                        float& y0, float& y1, float& y2) {
+  y0 = (m[0] * v0 + m[1] * v1) + m[2] * v2;
+  y1 = (m[3] * v0 + m[4] * v1) + m[5] * v2;
+  y2 = (m[6] * v0 + m[7] * v1) + m[8] * v2;
+}
+
+// `ml` / `ma` are the lane's weighting blocks R^T D_l R and R^T D_a R
+// (weighted instantiation only); `use_l` / `use_a` false leaves that half
+// unweighted, exactly as the plain version folds its static identity block.
+template <int A, bool WEIGHTED>
 __device__ __forceinline__ void residual_and_jtask(const Chain<A>& ch, const float* q,
                                                    const float* tr, const float* tt,
+                                                   const float* ml, const float* ma,
+                                                   bool use_l, bool use_a,
                                                    float* e, float jt[6][A], float& f) {
   float r[9], t[3];
   float dir_w[A][3], p_j[A][3];
@@ -432,39 +496,92 @@ __device__ __forceinline__ void residual_and_jtask(const Chain<A>& ch, const flo
       jt[3 + i][j] = jr[3 * i] * ang[0] + jr[3 * i + 1] * ang[1] + jr[3 * i + 2] * ang[2];
     }
   }
+  if constexpr (WEIGHTED) {
+    // e <- M e, J <- M J with M = blockdiag(ml, ma): two 3x3 blocks, never a
+    // 6x6 product (the off-diagonal blocks are static zeros).
+    if (use_l) {
+      weight3(ml, e[0], e[1], e[2], e[0], e[1], e[2]);
+#pragma unroll
+      for (int j = 0; j < A; ++j)
+        weight3(ml, jt[0][j], jt[1][j], jt[2][j], jt[0][j], jt[1][j], jt[2][j]);
+    }
+    if (use_a) {
+      weight3(ma, e[3], e[4], e[5], e[3], e[4], e[5]);
+#pragma unroll
+      for (int j = 0; j < A; ++j)
+        weight3(ma, jt[3][j], jt[4][j], jt[5][j], jt[3][j], jt[4][j], jt[5][j]);
+    }
+  }
   f = e[0] * e[0] + e[1] * e[1] + e[2] * e[2] + e[3] * e[3] + e[4] * e[4] + e[5] * e[5];
 }
 
 // --- the solve ----------------------------------------------------------------
 
-template <int A>
+// One word per warp between the two warps of a pose pair (OPTIK_WIDE).
+__device__ __forceinline__ unsigned pair_exchange(unsigned (*xchg)[2][2], int it,
+                                                  unsigned word) {
+  const int lane = threadIdx.x & 31;
+  const int half = (threadIdx.x >> 5) & 1;
+  const int pair = threadIdx.x >> 6;
+  volatile unsigned* slot = xchg[pair][it & 1];
+  if (lane == 0) slot[half] = word;
+  // Named barrier of this pair's 64 threads (id 0 is __syncthreads).  The
+  // buffer alternates with the iteration's parity: a warp can only reach
+  // its write of iteration it + 2 after its partner has passed the barrier
+  // of iteration it + 1, i.e. after the partner's read of iteration it.
+  asm volatile("bar.sync %0, 64;" ::"r"(pair + 1) : "memory");
+  return slot[half ^ 1];
+}
+
+template <int A, bool QUALITY, bool WEIGHTED, bool WIDE>
 __global__ void __launch_bounds__(kBlockThreads)
-lm_solve_kernel(const __grid_constant__ Chain<A> ch, const Opts o, int n_lanes, int s_lanes,
-                int total_restarts, int reseed, int max_total_iters,
-                const float* __restrict__ seeds,   // (A, L)
+lm_solve_kernel(const __grid_constant__ Chain<A> ch, const Opts o, int n_pose, int s_lanes,
+                int s_pad, int total_restarts, int reseed, int freeze, int max_total_iters,
+                const float* __restrict__ seeds,   // (A, L), L = n_pose * s_lanes
                 const float* __restrict__ tgt,     // (12, B)
                 const float* __restrict__ table,   // (R, A)
+                const float* __restrict__ qx0,     // (A, B), Quality with reseeding
                 float* __restrict__ x_out,         // (A, L)
                 float* __restrict__ f_out,         // (L,)
                 int8_t* __restrict__ succ_out,     // (L,)
                 int* __restrict__ idx_out,         // (L,)
                 int* __restrict__ sit_out,         // (L,)
-                int* __restrict__ warp_iters) {    // (threads / 32,)
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+                int* __restrict__ warp_work) {     // (threads / 32,)
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
-  const bool live = l < n_lanes;
-  const int n_pose = n_lanes / s_lanes;
-  const int pose = live ? l / s_lanes : 0;
-  const int seed = l % s_lanes;
-  const unsigned group = s_lanes == 32
-      ? kFullMask
-      : ((1u << s_lanes) - 1u) << ((lane / s_lanes) * s_lanes);
+  const int pose_t = t / s_pad;
+  const int seed = t % s_pad;
+  const bool live = pose_t < n_pose && seed < s_lanes;
+  const int pose = live ? pose_t : 0;
+  const int n_lanes = n_pose * s_lanes;
+  const int l = pose * s_lanes + seed;   // read only where live
+  // The pose's lanes inside this warp; empty when the Speed freeze is off.
+  const unsigned group = !freeze ? 0u
+      : (s_pad >= 32 ? kFullMask : ((1u << s_pad) - 1u) << ((lane / s_pad) * s_pad));
+  // Quality best-tracking runs only when lanes stride a restart budget.
+  const bool track_best = QUALITY && reseed;
 
   float tr[9], tt[3];
 #pragma unroll
   for (int i = 0; i < 9; ++i) tr[i] = live ? tgt[i * n_pose + pose] : (i % 4 == 0 ? 1.0f : 0.0f);
 #pragma unroll
   for (int i = 0; i < 3; ++i) tt[i] = live ? tgt[(9 + i) * n_pose + pose] : 0.0f;
+
+  // Weighting blocks M = R^T D R with R the lane's target rotation, each
+  // entry summed as ((R_0i w_0) R_0j + (R_1i w_1) R_1j) + (R_2i w_2) R_2j.
+  float ml[WEIGHTED ? 9 : 1], ma[WEIGHTED ? 9 : 1];
+  if constexpr (WEIGHTED) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        ml[3 * i + j] = ((tr[i] * o.wl[0]) * tr[j] + (tr[3 + i] * o.wl[1]) * tr[3 + j])
+                        + (tr[6 + i] * o.wl[2]) * tr[6 + j];
+        ma[3 * i + j] = ((tr[i] * o.wa[0]) * tr[j] + (tr[3 + i] * o.wa[1]) * tr[3 + j])
+                        + (tr[6 + i] * o.wa[2]) * tr[6 + j];
+      }
+  }
+  const bool use_l = WEIGHTED && !o.lin_id, use_a = WEIGHTED && !o.ang_id;
 
   float x[A], e[6], jt[6][A];
 #pragma unroll
@@ -480,9 +597,29 @@ lm_solve_kernel(const __grid_constant__ Chain<A> ch, const Opts o, int n_lanes, 
   int cur_idx = reseed ? seed : 0;
   int it_lane = 0, succ_it = 0;
 
+  // Quality: the caller's seed and the lane's best success so far.
+  float q0[QUALITY ? A : 1], bx[QUALITY ? A : 1];
+  float bd = INFINITY, bf = INFINITY;
+  int bi = 0, succ_cnt = 0;
+  if constexpr (QUALITY) {
+#pragma unroll
+    for (int p = 0; p < A; ++p) {
+      q0[p] = (track_best && live) ? qx0[p * n_pose + pose] : 0.0f;
+      bx[p] = 0.0f;
+    }
+  }
+
+  __shared__ unsigned xchg[WIDE ? kBlockThreads / 64 : 1][2][2];
+  // WIDE: whether both warps of the pair have stopped (the pair's exit test).
+  bool pair_done = pose_t >= n_pose;
+
   int it = 0;
   for (; it < max_total_iters; ++it) {
-    if (__all_sync(kFullMask, stopped)) break;
+    if constexpr (WIDE) {
+      if (pair_done) break;
+    } else {
+      if (__all_sync(kFullMask, stopped)) break;
+    }
 
     // Damped GN step from the carried (e, J):
     // delta = -J^T (J J^T + lam I)^-1 e.
@@ -520,7 +657,8 @@ lm_solve_kernel(const __grid_constant__ Chain<A> ch, const Opts o, int n_lanes, 
 
     // ONE fused evaluation: trial cost + the next step's Jacobian.
     float e_new[6], jt_new[6][A], f_new;
-    residual_and_jtask<A>(ch, xn, tr, tt, e_new, jt_new, f_new);
+    residual_and_jtask<A, WEIGHTED>(ch, xn, tr, tt, ml, ma, use_l, use_a, e_new, jt_new,
+                                    f_new);
 
     const bool finite = isfinite(f_new);
     const bool accept = ((f_new < f) || pending) && finite;
@@ -594,14 +732,40 @@ lm_solve_kernel(const __grid_constant__ Chain<A> ch, const Opts o, int n_lanes, 
     bool attempt_over = newly_f || newly_df || newly_dx || newly_stuck
                         || (it_next > o.max_iters) || (pending && !finite);
 
+    if constexpr (QUALITY) {
+      if (track_best) {
+        // Record this attempt's solution if it is the lane's best success so
+        // far (least distance to the caller's seed), then keep exploring.
+        float d2 = (x[0] - q0[0]) * (x[0] - q0[0]);
+#pragma unroll
+        for (int p = 1; p < A; ++p) d2 = d2 + (x[p] - q0[p]) * (x[p] - q0[p]);
+        const float d = sqrtf(d2);
+        if (run && succ_now && (d < bd)) {
+#pragma unroll
+          for (int p = 0; p < A; ++p) bx[p] = x[p];
+          bd = d;
+          bf = f;
+          bi = cur_idx;
+        }
+      }
+    }
+
     bool pending_next = false;
     if (reseed) {
       const int next_idx = cur_idx + s_lanes;
       const bool can_retry = next_idx < total_restarts;
-      const bool failed_over = run && attempt_over && !succ_now;
-      pending_next = failed_over && can_retry;
-      stopped = stopped || (run && ((attempt_over && succ_now)
-                                    || (failed_over && !can_retry)));
+      if constexpr (QUALITY) {
+        // Every finished attempt, success or not, moves on to the next seed
+        // while budget remains.
+        const bool over = run && attempt_over;
+        pending_next = over && can_retry;
+        stopped = stopped || (over && !can_retry);
+      } else {
+        const bool failed_over = run && attempt_over && !succ_now;
+        pending_next = failed_over && can_retry;
+        stopped = stopped || (run && ((attempt_over && succ_now)
+                                      || (failed_over && !can_retry)));
+      }
       if (pending_next) {
         cur_idx = next_idx;
         it_next = 0;
@@ -610,10 +774,39 @@ lm_solve_kernel(const __grid_constant__ Chain<A> ch, const Opts o, int n_lanes, 
       stopped = stopped || (run && attempt_over);
     }
 
-    // Speed mode: once any restart of a pose succeeds, the pose's lanes
-    // freeze (winner = earliest success, ties by lowest restart index).
-    const unsigned votes = __ballot_sync(kFullMask, success);
-    const bool pose_done = (votes & group) != 0u;
+    // Group decision.  Speed: once any restart of a pose succeeds, the
+    // pose's lanes freeze (winner = earliest success, ties by lowest restart
+    // index).  Quality with a cap: the pose freezes once its lanes have
+    // completed `cap` successful attempts.  Dead lanes vote 0.
+    bool pose_done = false;
+    if constexpr (QUALITY) {
+      if (o.cap > 0) {
+        succ_cnt += (run && succ_now) ? 1 : 0;
+        if constexpr (WIDE) {
+          unsigned word = (unsigned)__reduce_add_sync(kFullMask, succ_cnt) << 1;
+          word |= __all_sync(kFullMask, stopped) ? 1u : 0u;
+          const unsigned other = pair_exchange(xchg, it, word);
+          pose_done = (int)((word >> 1) + (other >> 1)) >= o.cap;
+          pair_done = pose_done || ((word & other & 1u) != 0u);
+        } else {
+          int cnt = succ_cnt;
+          for (int off = (s_pad < 32 ? s_pad : 32) >> 1; off > 0; off >>= 1)
+            cnt += __shfl_xor_sync(kFullMask, cnt, off);
+          pose_done = cnt >= o.cap;
+        }
+      }
+    } else {
+      const unsigned votes = __ballot_sync(kFullMask, success);
+      if constexpr (WIDE) {
+        unsigned word = votes != 0u ? 2u : 0u;
+        word |= __all_sync(kFullMask, stopped) ? 1u : 0u;
+        const unsigned other = pair_exchange(xchg, it, word);
+        pose_done = ((word | other) & 2u) != 0u;
+        pair_done = pose_done || ((word & other & 1u) != 0u);
+      } else {
+        pose_done = (votes & group) != 0u;
+      }
+    }
     stopped = stopped || pose_done;
     pending_next = pending_next && !pose_done;
 
@@ -623,13 +816,23 @@ lm_solve_kernel(const __grid_constant__ Chain<A> ch, const Opts o, int n_lanes, 
     it_lane = it_next;
   }
 
-  if (lane == 0) warp_iters[l / 32] = it;
+  // Work done: the warp's loop count times its live lanes.
+  const unsigned alive = __ballot_sync(kFullMask, live);
+  if (lane == 0) warp_work[t / 32] = it * __popc(alive);
   if (live) {
+    if (track_best) {
 #pragma unroll
-    for (int p = 0; p < A; ++p) x_out[p * n_lanes + l] = x[p];
-    f_out[l] = f;
-    succ_out[l] = success ? 1 : 0;
-    idx_out[l] = reseed ? cur_idx : seed;
+      for (int p = 0; p < A; ++p) x_out[p * n_lanes + l] = bx[p];
+      f_out[l] = bf;
+      succ_out[l] = isfinite(bd) ? 1 : 0;
+      idx_out[l] = bi;
+    } else {
+#pragma unroll
+      for (int p = 0; p < A; ++p) x_out[p * n_lanes + l] = x[p];
+      f_out[l] = f;
+      succ_out[l] = success ? 1 : 0;
+      idx_out[l] = reseed ? cur_idx : seed;
+    }
     sit_out[l] = succ_it;
   }
 }
@@ -659,19 +862,6 @@ Chain<A> unpack_chain(const float* h) {
   return c;
 }
 
-template <int A>
-int launch(const float* chain, const Opts& o, int n_lanes, int s_lanes, int total_restarts,
-           int reseed, int max_total_iters, const float* seeds, const float* tgt,
-           const float* table, float* x_out, float* f_out, int8_t* succ_out, int* idx_out,
-           int* sit_out, int* warp_iters, cudaStream_t stream) {
-  const Chain<A> c = unpack_chain<A>(chain);
-  const int blocks = (n_lanes + kBlockThreads - 1) / kBlockThreads;
-  lm_solve_kernel<A><<<blocks, kBlockThreads, 0, stream>>>(
-      c, o, n_lanes, s_lanes, total_restarts, reseed, max_total_iters, seeds, tgt, table,
-      x_out, f_out, succ_out, idx_out, sit_out, warp_iters);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -680,6 +870,11 @@ int optik_lm_block_threads() { return kBlockThreads; }
 int optik_lm_joint_floats() { return kJointFloats; }
 int optik_lm_tip_floats() { return kTipFloats; }
 int optik_lm_max_dof() { return kMaxDof; }
+int optik_lm_num_opts() { return kNumOpts; }
+// This library's instantiation: dof | quality << 8 | weighted << 9 | wide << 10.
+int optik_lm_variant() {
+  return kDof | (kQuality ? 1 << 8 : 0) | (kWeighted ? 1 << 9 : 0) | (kWide ? 1 << 10 : 0);
+}
 
 const char* optik_lm_error_string(int code) {
   if (code == -1) return "invalid argument to optik_lm_solve";
@@ -690,18 +885,23 @@ const char* optik_lm_error_string(int code) {
 // success) or -1 for invalid arguments.  `chain` and `opts` are host
 // arrays (copied into the kernel's parameters); `opts` holds max_iters,
 // tol_f, tol_df, tol_dx, f_is_success, df_is_success, dx_is_success,
-// lam_init, lam_min, lam_max.  Every other pointer is
-// device memory.  The kernel writes x_out, f_out, succ_out, idx_out and
-// sit_out for lanes < n_lanes, and warp_iters for every launched warp
-// (ceil(n_lanes / block) * block / 32 entries).
-int optik_lm_solve(int dof, const float* chain, int chain_len, const float* opts,
-                   int n_lanes, int s_lanes, int total_restarts, int reseed,
-                   const float* seeds, const float* tgt, const float* table,
-                   float* x_out, float* f_out, int8_t* succ_out, int* idx_out,
-                   int* sit_out, int* warp_iters, void* stream) {
-  if (dof < 1 || dof > kMaxDof || chain_len != dof * kJointFloats + kTipFloats
-      || n_lanes < 1 || s_lanes < 1 || 32 % s_lanes != 0 || n_lanes % s_lanes != 0
-      || total_restarts < s_lanes)
+// lam_init, lam_min, lam_max, linear weights (3), angular weights (3),
+// linear-is-identity, angular-is-identity, quality success cap.  Every other
+// pointer is device memory.  A pose's `s_lanes` lanes occupy `s_pad` threads
+// (a divisor of 32, or 64); `freeze` turns the Speed-mode group stop on.
+// `qx0` is read only by the Quality instantiation with reseeding.  The
+// kernel writes x_out, f_out, succ_out, idx_out and sit_out for the
+// n_pose * s_lanes lanes, and warp_work for every launched warp
+// (ceil(n_pose * s_pad / block) * block / 32 entries).
+int optik_lm_solve(const float* chain, int chain_len, const float* opts, int n_opts,
+                   int n_pose, int s_lanes, int s_pad, int total_restarts, int reseed,
+                   int freeze, const float* seeds, const float* tgt, const float* table,
+                   const float* qx0, float* x_out, float* f_out, int8_t* succ_out,
+                   int* idx_out, int* sit_out, int* warp_work, void* stream) {
+  const bool pad_ok = s_pad == 64 || (s_pad >= 1 && s_pad <= 32 && 32 % s_pad == 0);
+  if (chain_len != kDof * kJointFloats + kTipFloats || n_opts != kNumOpts || n_pose < 1
+      || s_lanes < 1 || !pad_ok || s_lanes > s_pad || total_restarts < s_lanes
+      || (long long)n_pose * s_pad * kDof > 0x7fffffffLL)
     return -1;
   Opts o;
   o.max_iters = (int)opts[0];
@@ -715,29 +915,29 @@ int optik_lm_solve(int dof, const float* chain, int chain_len, const float* opts
   o.lam_init = opts[7];
   o.lam_min = opts[8];
   o.lam_max = opts[9];
+  for (int i = 0; i < 3; ++i) {
+    o.wl[i] = opts[10 + i];
+    o.wa[i] = opts[13 + i];
+  }
+  o.lin_id = opts[16] > 0.5f;
+  o.ang_id = opts[17] > 0.5f;
+  o.cap = (int)opts[18];
+  // What this instantiation cannot run.
+  if (!kQuality && o.cap > 0) return -1;
+  if (kQuality && (freeze || (reseed && qx0 == nullptr))) return -1;
+  if (!kWeighted && !(o.lin_id && o.ang_id)) return -1;
+  const bool crosses = s_pad == 64 && (kQuality ? o.cap > 0 : freeze != 0);
+  if (crosses != kWide) return -1;
   const int rounds = reseed ? (total_restarts + s_lanes - 1) / s_lanes : 1;
   const int max_total_iters = (o.max_iters + 1) * rounds;
-  cudaStream_t st = (cudaStream_t)stream;
-#define OPTIK_LM_CASE(N)                                                                   \
-  case N:                                                                                  \
-    return launch<N>(chain, o, n_lanes, s_lanes, total_restarts, reseed, max_total_iters, \
-                     seeds, tgt, table, x_out, f_out, succ_out, idx_out, sit_out,          \
-                     warp_iters, st);
-  switch (dof) {
-    OPTIK_LM_CASE(1)
-    OPTIK_LM_CASE(2)
-    OPTIK_LM_CASE(3)
-    OPTIK_LM_CASE(4)
-    OPTIK_LM_CASE(5)
-    OPTIK_LM_CASE(6)
-    OPTIK_LM_CASE(7)
-    OPTIK_LM_CASE(8)
-    OPTIK_LM_CASE(9)
-    OPTIK_LM_CASE(10)
-    default:
-      return -1;
-  }
-#undef OPTIK_LM_CASE
+  const Chain<kDof> c = unpack_chain<kDof>(chain);
+  const long long threads = (long long)n_pose * s_pad;
+  const int blocks = (int)((threads + kBlockThreads - 1) / kBlockThreads);
+  lm_solve_kernel<kDof, kQuality, kWeighted, kWide>
+      <<<blocks, kBlockThreads, 0, (cudaStream_t)stream>>>(
+          c, o, n_pose, s_lanes, s_pad, total_restarts, reseed, freeze, max_total_iters,
+          seeds, tgt, table, qx0, x_out, f_out, succ_out, idx_out, sit_out, warp_work);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

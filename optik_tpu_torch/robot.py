@@ -11,12 +11,13 @@ it the port runs so far.
 A ``Robot`` lives on one explicit ``device`` (default ``"cuda"``; on a
 machine without a card that default raises rather than switching to the
 CPU).  ``ik_batch`` on CUDA runs the hand-written LM kernel
-(``ops/cuda/lm_kernel.py``); on the CPU it runs the plain torch loop
-(``solver/ik.build_batch_solver``).  What the kernel does not run yet raises
-``NotImplementedError`` on CUDA, naming its ROADMAP item; nothing falls back
-quietly.  ``joint_jacobian``, ``jacobian_batch``, the diff-IK entry points,
-unlimited restart rounds (``max_restarts=0``), overflow rescue, the cascade
-and sharding are not ported yet (ROADMAP Queue 1).
+(``ops/cuda/lm_kernel.py``) in Speed and Quality mode, with per-axis
+weights, any ``seed_batch`` up to 64 lanes per pose and unlimited restart
+rounds (``max_restarts=0``); on the CPU it runs the plain torch loop
+(``solver/ik.build_batch_solver``).  More than 64 seed lanes per pose
+raises ``NotImplementedError`` on CUDA; nothing falls back quietly.
+``joint_jacobian``, ``jacobian_batch``, the diff-IK entry points, overflow
+rescue, the cascade and sharding are not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .config import SolverConfig
+from .config import DEFAULT_RESTARTS, SolverConfig
 from .models.chain import ChainSpec
 from .ops import soa
 from .ops.cuda import lm_kernel
@@ -214,31 +215,86 @@ class Robot:
             self._solvers[key] = fn
         return fn
 
+    def _ik_batch_unlimited(self, config: SolverConfig, tgt_r, tgt_t, x0,
+                            ee_offset, validate_seeds) -> ik_mod.IKResult:
+        """Unlimited restarts (``max_restarts=0``) as deterministic rounds.
+
+        Rounds of ``DEFAULT_RESTARTS`` seeds: round r re-solves only the
+        poses no earlier round found, with the next slice of the restart
+        stream (restart indices ``r*R .. r*R + R - 1``), until every pose is
+        found or ``config.unlimited_rounds_cap`` rounds have run
+        (``optik_tpu/robot.py:419-507``).  A pose's outcome depends only on
+        its own restart stream, so results do not depend on the batch or on
+        where round boundaries fall; a pose found in an earlier round keeps
+        that round's result bit for bit.
+
+        ``iters`` of a pose found in round r > 0 is that round's
+        iterations-to-converge, not a sum over rounds.  The JAX version pads
+        each round's hard set to a power-of-two bucket to bound its
+        recompiles and scales the pad rows' share out of ``lane_iters`` as
+        an estimate; nothing here compiles per shape, so rounds run at
+        their true size and ``lane_iters`` is the exact sum over rounds.
+
+        The rounds are driven from the host but stay on the device: per
+        round the host reads the indices of the unfound poses (one fetch);
+        targets, solutions and costs never leave the device.
+        """
+        base = config.replace(max_restarts=DEFAULT_RESTARTS)
+        tgt_r, tgt_t, x0 = self._tensor(tgt_r), self._tensor(tgt_t), \
+            self._tensor(x0)
+        res = self.ik_batch(base, tgt_r, tgt_t, x0, ee_offset=ee_offset,
+                            validate_seeds=validate_seeds)
+        found, x, cost, iters = res.found, res.x, res.cost, res.iters
+        lane_iters = res.lane_iters
+        for r in range(1, max(1, config.unlimited_rounds_cap)):
+            bad = torch.nonzero(~found).squeeze(1)  # the round's one fetch
+            if bad.numel() == 0:
+                break
+            sub = self.ik_batch(base, tgt_r[bad], tgt_t[bad], x0[bad],
+                                ee_offset=ee_offset, validate_seeds=False,
+                                _restart_offset=r * DEFAULT_RESTARTS)
+            ok = sub.found
+            x[bad] = torch.where(ok[:, None], sub.x, x[bad])
+            cost[bad] = torch.where(ok, sub.cost, cost[bad])
+            iters[bad] = torch.where(ok, sub.iters, iters[bad])
+            found[bad] = ok
+            lane_iters = lane_iters + sub.lane_iters
+        return ik_mod.IKResult(found=found, x=x, cost=cost, iters=iters,
+                               lane_iters=lane_iters,
+                               found_count=found.sum())
+
     def ik_batch(self, config: SolverConfig, tgt_r: ArrayLike,
                  tgt_t: ArrayLike, x0: ArrayLike,
                  ee_offset: Optional[ArrayLike] = None,
-                 validate_seeds: bool = True) -> ik_mod.IKResult:
+                 validate_seeds: bool = True,
+                 _restart_offset: Optional[int] = None) -> ik_mod.IKResult:
         """Batched IK over B poses: (B,3,3), (B,3), (B,A) -> IKResult.
 
         Seeds outside the joint limits raise, as in the scalar path;
         ``validate_seeds=False`` skips that check (for seeds in the limits
-        by construction).  On CUDA this runs the LM kernel in Speed mode
-        and raises ``TypeError`` unless the Robot's dtype is float32.
+        by construction).  On CUDA this runs the LM kernel and raises
+        ``TypeError`` unless the Robot's dtype is float32.
+        ``config.max_restarts == 0`` runs unlimited-restart rounds (see
+        :meth:`_ik_batch_unlimited`), whose continuation rounds pass
+        ``_restart_offset``.  The winner-selection key (``sel_key``) is
+        internal and not part of the result, as in the JAX package.
         """
-        if config.max_restarts == 0:
-            raise NotImplementedError(
-                "max_restarts=0 (unlimited restart rounds, "
-                "Robot._ik_batch_unlimited) is not ported yet: ROADMAP "
-                "Queue 1 item 3")
+        if config.max_restarts == 0 and _restart_offset is None:
+            return self._ik_batch_unlimited(config, tgt_r, tgt_t, x0,
+                                            ee_offset, validate_seeds)
         if validate_seeds:
             self._check_seeds(x0)
         tgt_r, tgt_t, x0 = self._tensor(tgt_r), self._tensor(tgt_t), \
             self._tensor(x0)
         ee_pair = None if ee_offset is None else _parse_pose(ee_offset)
         fn = self._batch_solver(config, ee_pair)
+        off = int(_restart_offset or 0)
         if self.device.type == "cuda":
-            return fn(tgt_r, tgt_t, x0)
-        ee_r = ee_t = None
-        if ee_pair is not None:
-            ee_r, ee_t = self._tensor(ee_pair[0]), self._tensor(ee_pair[1])
-        return fn(tgt_r, tgt_t, x0, ee_r, ee_t)
+            res = fn(tgt_r, tgt_t, x0, restart_offset=off)
+        else:
+            ee_r = ee_t = None
+            if ee_pair is not None:
+                ee_r = self._tensor(ee_pair[0])
+                ee_t = self._tensor(ee_pair[1])
+            res = fn(tgt_r, tgt_t, x0, ee_r, ee_t, restart_offset=off)
+        return res._replace(sel_key=None)

@@ -104,11 +104,14 @@ def build_batch_solver(spec, cfg: SolverConfig, dtype=torch.float64,
                        device="cpu"):
     """A batched IK solver for one robot+config on the plain torch loop.
 
-    Returns ``fn(tgt_r (B,3,3), tgt_t (B,3), x0 (B,A) [, ee_r, ee_t])
-    -> IKResult``.  Every pose runs S = min(seed_batch, total_restarts)
-    lanes in one lockstep loop; the rest of the restart budget is consumed
-    by continuous reseeding.  ``lane_iters`` is the loop's iteration count
-    times B*S (every lane runs until the slowest lane stops).
+    Returns ``fn(tgt_r (B,3,3), tgt_t (B,3), x0 (B,A) [, ee_r, ee_t,
+    restart_offset]) -> IKResult``.  Every pose runs
+    S = min(seed_batch, total_restarts) lanes in one lockstep loop; the rest
+    of the restart budget is consumed by continuous reseeding.
+    ``restart_offset`` shifts the restart stream (row i of the seed table is
+    the draw for index ``i + restart_offset``; one table per offset is kept).
+    ``lane_iters`` is the loop's iteration count times B*S (every lane runs
+    until the slowest lane stops).
     """
     device = torch.device(device)
     consts = soa.chain_constants(spec)
@@ -119,19 +122,29 @@ def build_batch_solver(spec, cfg: SolverConfig, dtype=torch.float64,
     s = min(cfg.seed_batch, r_total)
     use_reseed = r_total > s
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    if r_total > 1:
-        table_np = rnd.seed_table(cfg.rng_seed, r_total, spec.lower,
-                                  spec.upper, np_dtype)
-    else:
-        table_np = np.zeros((1, a), np_dtype)
-    table = torch.tensor(table_np, dtype=dtype, device=device)
+    tables = {}
+
+    def table_for(off: int) -> torch.Tensor:
+        t = tables.get(off)
+        if t is None:
+            if r_total > 1:
+                table_np = rnd.seed_table(cfg.rng_seed, r_total, spec.lower,
+                                          spec.upper, np_dtype, off=off)
+            else:
+                table_np = np.zeros((1, a), np_dtype)
+            t = tables[off] = torch.tensor(table_np, dtype=dtype,
+                                           device=device)
+        return t
+
     quality = cfg.solution_mode == SolutionMode.QUALITY
 
-    def solve_batch(tgt_r, tgt_t, x0, ee_r=None, ee_t=None) -> IKResult:
+    def solve_batch(tgt_r, tgt_t, x0, ee_r=None, ee_t=None,
+                    restart_offset: int = 0) -> IKResult:
         tgt_r = as_tensor(tgt_r, dtype, device)
         tgt_t = as_tensor(tgt_t, dtype, device)
         x0 = as_tensor(x0, dtype, device)
         b = tgt_r.shape[0]
+        table = table_for(int(restart_offset))
         seeds = torch.cat([x0[:, None, :],
                            table[1:s].expand(b, s - 1, a)], dim=1)
         if ee_r is not None:

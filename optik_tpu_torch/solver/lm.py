@@ -44,3 +44,6 @@ class LMResult(NamedTuple):
     restart_index: Optional[torch.Tensor] = None
     # Per-lane attempt iterations at first success, 0 if never.
     succ_iters: Optional[torch.Tensor] = None
+    # Per-lane iterations executed before the lane stopped (int32); only
+    # with ``track_active=True``.
+    active_iters: Optional[torch.Tensor] = None

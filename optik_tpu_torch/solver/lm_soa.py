@@ -16,9 +16,11 @@ semantics (``lm_soa.py:183-390``), which its module docstring sets out:
 
 This loop is the oracle the CUDA kernel (``ops/cuda/lm_kernel.py``) is held
 against on the card.  It syncs with the device once per iteration (the
-"all lanes stopped" test), which is fine for an oracle.  The JAX version's
-``unroll`` and ``track_active`` options shape compilation and probes, not
-results, and are not ported.
+"all lanes stopped" test), which is fine for an oracle.  ``track_active``
+is the JAX loop's schedule probe (``lm_soa.py:83``, ``:268-269``): the
+iterations each lane ran before it stopped, i.e. the lane-iterations the
+inputs need under this schedule.  The JAX version's ``unroll`` option shapes
+compilation, not results, and is not ported.
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ class LoopOut(NamedTuple):
     # Per-lane attempt-iteration count at the lane's first success (0 when
     # the lane never succeeded).
     succ_iters: Optional[torch.Tensor] = None
+    # Per-lane iterations executed before the lane stopped; None unless
+    # lm_loop(track_active=True).
+    active_iters: Optional[torch.Tensor] = None
 
 
 def lm_loop(consts, lower, upper, opts: LMOptions,
@@ -55,10 +60,13 @@ def lm_loop(consts, lower, upper, opts: LMOptions,
             explore_full_budget: bool = False,
             qx0=None,               # A components: caller's seed (quality)
             group_success_cap: Optional[int] = None,
-            approx: bool = False) -> LoopOut:
+            approx: bool = False,
+            track_active: bool = False) -> LoopOut:
     """The lockstep LM loop on component lists (see module docstring).
 
     ``approx`` selects kernel math mode (polynomial atan2/sincos).
+    ``track_active`` counts, per lane, the iterations in which the lane was
+    not stopped (``LoopOut.active_iters``); results do not depend on it.
     """
     a = len(xs0)
     lane_shape = torch.broadcast_shapes(*[x.shape for x in xs0])
@@ -94,6 +102,7 @@ def lm_loop(consts, lower, upper, opts: LMOptions,
     it_lane = zero_i              # per-attempt iteration
     succ_it = zero_i              # iters at first success
     succ_cnt = zero_i             # completed successful attempts
+    act = zero_i if track_active else None
     if reseed:
         cur_idx = torch.broadcast_to(
             torch.as_tensor(lane_index, dtype=torch.int32, device=device),
@@ -175,6 +184,8 @@ def lm_loop(consts, lower, upper, opts: LMOptions,
         newly_stuck = lam_next >= opts.lam_max
 
         run = ~stopped
+        if track_active:
+            act = act + run.to(torch.int32)
         succ_now = newly_f
         if opts.df_is_success:
             succ_now = succ_now | newly_df
@@ -248,10 +259,11 @@ def lm_loop(consts, lower, upper, opts: LMOptions,
 
     if track_best:
         return LoopOut(xs=tuple(bx), f=bf, success=torch.isfinite(bd),
-                       iters=it, restart_index=bi, succ_iters=succ_it)
+                       iters=it, restart_index=bi, succ_iters=succ_it,
+                       active_iters=act)
     return LoopOut(xs=tuple(xs), f=f, success=success, iters=it,
                    restart_index=cur_idx if reseed else None,
-                   succ_iters=succ_it)
+                   succ_iters=succ_it, active_iters=act)
 
 
 def solve_soa(consts, lower, upper, opts: LMOptions,
@@ -268,7 +280,8 @@ def solve_soa(consts, lower, upper, opts: LMOptions,
               explore_full_budget: bool = False,
               quality_x0: Optional[torch.Tensor] = None,
               group_success_cap: Optional[int] = None,
-              approx: bool = False) -> LMResult:
+              approx: bool = False,
+              track_active: bool = False) -> LMResult:
     """Tensor-in/tensor-out wrapper around :func:`lm_loop`.
 
     Lane axes = x0.shape[:-1]; the seed-group axis (for Speed-mode pose
@@ -304,9 +317,11 @@ def solve_soa(consts, lower, upper, opts: LMOptions,
                   total_restarts=total_restarts, s_lanes=s_lanes,
                   success_stops_group=success_stops_group, group_axis=-1,
                   explore_full_budget=explore_full_budget, qx0=qx0,
-                  group_success_cap=group_success_cap, approx=approx)
+                  group_success_cap=group_success_cap, approx=approx,
+                  track_active=track_active)
 
     return LMResult(x=torch.stack(list(out.xs), dim=-1), f=out.f,
                     success=out.success, iters=out.iters,
                     restart_index=out.restart_index,
-                    succ_iters=out.succ_iters)
+                    succ_iters=out.succ_iters,
+                    active_iters=out.active_iters)

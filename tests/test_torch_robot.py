@@ -127,10 +127,20 @@ def test_device_defaults_and_unported_options(robots, monkeypatch):
     _, tr_ = robots
     assert tr_.num_positions() == 7
     tr_.set_parallelism(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr_.ik_batch(optik_tpu_torch.SolverConfig(max_restarts=0),
-                     np.eye(3)[None], np.zeros((1, 3)), np.zeros((1, 7)),
-                     validate_seeds=False)
+    # What still raises on CUDA: more than 64 seed lanes per pose (at plan
+    # build, before anything is launched) and any dtype but float32.
+    from optik_tpu_torch.ops.cuda import lm_kernel
+
+    wide = optik_tpu_torch.SolverConfig(max_restarts=256, seed_batch=128)
+    with pytest.raises(NotImplementedError, match="S=128"):
+        lm_kernel.build_kernel_solver(tr_.spec, wide)
+    lm_kernel.build_kernel_solver(tr_.spec, wide.replace(seed_batch=64))
+    f64 = torch.zeros(1, 7, dtype=torch.float64)
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    with pytest.raises(TypeError, match="float32"):
+        lm_kernel._check_cuda_f32(x0=f64)
+    monkeypatch.undo()
     # The default device is the card; without one it raises instead of
     # moving to the CPU.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -138,11 +148,52 @@ def test_device_defaults_and_unported_options(robots, monkeypatch):
         optik_tpu_torch.Robot(tr_.spec)
 
 
+def test_unlimited_restarts_match_jax(robots):
+    """``max_restarts=0`` at f64 on the CPU against the JAX package: rounds
+    of 64 restarts re-solve only the unfound poses with the next slice of
+    the restart stream.  A per-attempt budget of 3 iterations makes
+    one-round failures common.  Found masks equal; x within 1e-8 (as for the main
+    config above); poses found in round 1 keep that round's result bit for
+    bit; ``sel_key`` stays internal."""
+    jr, tr_ = robots
+    rng = np.random.default_rng(7)
+    lo, hi = jr.joint_limits()
+    n = 12
+    rot, trans = jr.fk_batch(rng.uniform(lo, hi, size=(n, 7)))
+    rot, trans = np.asarray(rot), np.asarray(trans)
+    x0 = rng.uniform(lo, hi, size=(n, 7))
+    kw = dict(max_restarts=64, max_iters=3, seed_batch=8)
+    unl = dict(kw, max_restarts=0, unlimited_rounds_cap=6)
+
+    ref = jr.ik_batch(optik_tpu.SolverConfig(**unl), rot, trans, x0)
+    one = tr_.ik_batch(optik_tpu_torch.SolverConfig(**kw), rot, trans, x0)
+    got = tr_.ik_batch(optik_tpu_torch.SolverConfig(**unl), rot, trans, x0)
+
+    f1, fu = one.found.numpy(), got.found.numpy()
+    assert 0 < f1.sum() < n            # round 1 leaves work for round 2
+    assert fu.sum() > f1.sum()         # and later rounds find some of it
+    assert (fu | ~f1).all()
+    np.testing.assert_array_equal(fu, np.asarray(ref.found))
+    np.testing.assert_allclose(got.x.numpy()[fu], np.asarray(ref.x)[fu],
+                               rtol=0, atol=1e-8)
+    assert torch.equal(got.x[one.found], one.x[one.found])
+    assert torch.equal(got.cost[one.found], one.cost[one.found])
+    assert np.all(got.cost.numpy()[fu] <= 1e-6)
+    # Rounds run at their true size (only the unfound poses), so the work
+    # counter grows by less than a full round per round.
+    assert int(one.lane_iters) < int(got.lane_iters) < 6 * int(one.lane_iters)
+    assert got.sel_key is None and one.sel_key is None
+    assert int(got.found_count) == fu.sum()
+
+
 def test_import_adds_no_jax_module():
     code = ("import sys\n"
             "before = {m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optik_tpu')}\n"
             "import optik_tpu_torch, optik_tpu_torch.robot\n"
+            "import optik_tpu_torch.ops.cuda.build\n"
+            "from optik_tpu_torch.benchmarks import bench_fp32_peak, "
+            "exp_warp_probe, exp_bisect\n"
             "after = {m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optik_tpu')}\n"
             "print(sorted(after - before))\n")
@@ -166,6 +217,9 @@ def test_port_sources_import_no_jax():
     files = sorted((REPO / "optik_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    names = {f.name for f in files}
+    assert {"build.py", "bench_fp32_peak.py", "exp_warp_probe.py",
+            "exp_bisect.py"} <= names
     for path in files:
         bad = {m for m in _imported_roots(path)
                if m in ("jax", "jaxlib", "optik_tpu")}
