@@ -7,10 +7,12 @@ Phases (each prints a line; any failed check exits non-zero):
   1. the card's name and power limit, as nvidia-smi reports them;
   2. the build of every library the script launches, one nvcc per variant,
      all started together: the LM kernel (optik_tpu_torch/csrc/lm_kernel.cu)
-     for 7 DoF in Speed, Speed+weights, Speed with two-warp poses and
-     Quality, contracted and uncontracted (--fmad=false), the FP32
-     throughput probe and the primitive probes; registers and spills of
-     each from ptxas;
+     with the Panda's chain compiled in, in Speed, Speed+weights, Speed with
+     two-warp poses and Quality, contracted and uncontracted (--fmad=false),
+     the FP32 throughput probe and the primitive probes; registers, spills,
+     block size and resident warps per SM of each, and the FP32 operations
+     in the Speed kernel's SASS (which must hold no double-precision
+     arithmetic: the chain's static terms fold at compile time);
   3. the LM kernel against its plain torch version (both in kernel math
      mode, on the same uploaded seed table) at B=4096 with the main config:
      the uncontracted build is bitwise equal to it lane by lane; the
@@ -24,7 +26,10 @@ Phases (each prints a line; any failed check exits non-zero):
      the checks of phase 3 (uncontracted bitwise in every lane; contracted
      within the rounding-level limits), both versions' times there, and the
      lane-iterations the inputs need (the plain loop's track_active probe),
-     from which the kernel's roofline bound follows;
+     from which the kernel's roofline bound follows; the kernel's schedule
+     probe there: the tail share of the launch (what remains after the last
+     draw from the pose queue) and the occupied share of the warp slots it
+     executed;
   6. the main path, Robot.from_urdf_file -> fk_batch -> ik_batch in Speed
      mode on the Panda at B=131,072 (64 restarts, 8 lanes, 32 iterations,
      tol_f 1e-6, f32): the launch counter rises, success >= 0.99, every
@@ -43,8 +48,9 @@ Phases (each prints a line; any failed check exits non-zero):
  10. the probes: fp32_peak (three bodies: uncontracted bitwise at full
      shape and depth, contracted within 1e-5 relative at 4 trips, then
      Gop/s), warp_probe (seven cases exact, the four that one PyTorch call
-     computes also against that call) and the exp_bisect variants against
-     their plain versions;
+     computes also against that call, both sides prepared alike and timed
+     in turns, and each side's device time alone from the profiler) and the
+     exp_bisect variants against their plain versions;
  11. a torch.profiler split of device time on the Speed and Quality paths.
 Then one JSON line with every kernel and, last, the result line.  Without a
 card, or run from a directory that holds no checkout, it exits 2 and prints
@@ -85,15 +91,6 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
-
-
 def usage_text(u: dict) -> str:
     return (f"{u['registers']} registers, {u['stack']} B stack, "
             f"{u['spill_stores']}/{u['spill_loads']} B spilled")
@@ -108,8 +105,9 @@ def sass_fp32_counts(build, lib_path):
     out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                          text=True, timeout=300)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
-    ops = re.findall(r"\b(FFMA|FMUL|FADD|MUFU)\b", out.stdout)
-    return {k: ops.count(k) for k in ("FFMA", "FMUL", "FADD", "MUFU")}
+    names = ("FFMA", "FMUL", "FADD", "MUFU", "DFMA", "DMUL", "DADD")
+    ops = re.findall(r"\b(" + "|".join(names) + r")\b", out.stdout)
+    return {k: ops.count(k) for k in names}
 
 
 def problem(robot, b, seed):
@@ -154,22 +152,6 @@ def timed(fn, reps):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return sorted(times)[len(times) // 2]
-
-
-def event_ms(fn, reps):
-    """Mean device milliseconds of fn() over ``reps`` calls (CUDA events),
-    after one warm call."""
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def profile_split(fn, reps):
@@ -258,6 +240,20 @@ def compare_contracted(robot, lm_kernel, plan, tr, tt, x0, lanes_p, what):
     return k, pose_err
 
 
+def schedule_line(lm_kernel, lanes, what):
+    """Print and return the kernel's schedule probe of one launch."""
+    prof = lm_kernel.schedule_profile(lanes)
+    print(f"schedule {what}: {prof['warps']} warps, span "
+          f"{prof['span_ms']:.3f} ms, tail after the last draw "
+          f"{prof['tail_ms']:.3f} ms = {100 * prof['tail_share']:.1f}%; 50 / "
+          f"90 / 99 / 100% of the warps had left by "
+          + " / ".join(f"{v:.3f}" for v in prof["exit_ms"]) + " ms; pose "
+          f"groups ran {prof['lane_iters_per_solve']:.1f} lane-iterations "
+          f"per solve in {prof['executed_slots_per_solve']:.1f} executed "
+          f"slots: occupied share {prof['occupied_share']:.3f}", flush=True)
+    return prof
+
+
 def lm_bytes(a, b, s, r):
     """Bytes one solve must move: seeds, targets and the seed table read
     once, x, f, success, restart index and iterations written once."""
@@ -291,6 +287,7 @@ def main() -> int:
     from optik_tpu_torch import Robot, SolverConfig
     from optik_tpu_torch.benchmarks import (bench_fp32_peak, exp_bisect,
                                             exp_warp_probe)
+    from optik_tpu_torch.benchmarks.timing import card_line, event_ms
     from optik_tpu_torch.models import asset_path
     from optik_tpu_torch.ops.cuda import build, lm_kernel
 
@@ -300,7 +297,12 @@ def main() -> int:
     device_name = torch.cuda.get_device_name(0)
 
     # 2. Build every library this script launches, all at once.  Each LM
-    # library holds one instantiation: (quality, weighted, wide, fmad).
+    # library holds one instantiation: the Panda's chain (its constants are
+    # part of the build key) and (quality, weighted, wide, fmad).
+    robot = Robot.from_urdf_file(asset_path("panda.urdf"), "panda_link0",
+                                 "panda_hand_tcp", device="cuda")
+    cfg = SolverConfig(**MAIN)
+    plan = lm_kernel.KernelPlan(robot.spec, cfg)
     lm_variants = {
         "speed": (False, False, False, True),
         "speed uncontracted": (False, False, False, False),
@@ -311,22 +313,32 @@ def main() -> int:
     }
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
-        jobs = {name: pool.submit(lm_kernel.load_library, 7, q, w, wide, fm)
+        jobs = {name: pool.submit(lm_kernel.load_library, plan.header, q, w,
+                                  wide, fm)
                 for name, (q, w, wide, fm) in lm_variants.items()}
         jobs["fp32_peak"] = pool.submit(bench_fp32_peak.load_library, True)
         jobs["fp32_peak uncontracted"] = pool.submit(
             bench_fp32_peak.load_library, False)
         jobs["warp_probe"] = pool.submit(exp_warp_probe.load_library)
-        infos = {name: job.result()[1] for name, job in jobs.items()}
-    print(f"build: {len(infos)} libraries in {time.perf_counter() - t0:.2f} "
-          f"s wall (nvcc seconds: " + ", ".join(
+        libs = {name: job.result() for name, job in jobs.items()}
+    infos = {name: pair[1] for name, pair in libs.items()}
+    build_wall_s = time.perf_counter() - t0
+    print(f"build: {len(infos)} libraries in {build_wall_s:.2f} "
+          f"s wall, the LM ones keyed by the chain's constants too (nvcc "
+          f"seconds: " + ", ".join(
               f"{n} {i.seconds:.1f}" for n, i in infos.items()) + ")",
           flush=True)
-    registers = {}
+    registers, occupancy = {}, {}
     for name in lm_variants:
-        u = build.ptxas_usage(infos[name].ptxas, "lm_solve_kernel")
-        registers[name] = u["registers"]
-        print(f"  lm_solve 7-DoF {name}: {usage_text(u)}", flush=True)
+        rep = lm_kernel.library_report(*libs[name])
+        registers[name] = rep["registers"]
+        occupancy[name] = {k: rep[k] for k in (
+            "block_threads", "blocks_per_sm", "warps_per_sm")}
+        print(f"  lm_solve Panda {name}: {rep['registers']} registers, "
+              f"{rep['stack']} B stack, {rep['spill_bytes']} B spilled, "
+              f"blocks of {rep['block_threads']} threads, "
+              f"{rep['blocks_per_sm']} resident per SM = "
+              f"{rep['warps_per_sm']} warps", flush=True)
     for name in ("fp32_peak", "warp_probe"):
         u = build.ptxas_usage(infos[name].ptxas)
         print(f"  {name} (first kernel): {usage_text(u)}", flush=True)
@@ -334,10 +346,6 @@ def main() -> int:
     check(main_use["spill_stores"] == 0 and main_use["spill_loads"] == 0,
           "the Speed / identity-weights kernel spills")
 
-    robot = Robot.from_urdf_file(asset_path("panda.urdf"), "panda_link0",
-                                 "panda_hand_tcp", device="cuda")
-    cfg = SolverConfig(**MAIN)
-    plan = lm_kernel.KernelPlan(robot.spec, cfg)
     ops_iter = lm_kernel.fp32_ops_per_lane_iter(plan)
     sass = sass_fp32_counts(build, infos["speed"].path)
     what = (f"FP32 operations per lane-iteration: {ops_iter} needed (chain "
@@ -348,9 +356,12 @@ def main() -> int:
     else:
         static = 2 * sass["FFMA"] + sass["FMUL"] + sass["FADD"] + sass["MUFU"]
         print(what + f"; SASS of the whole Speed kernel, static: {sass} -> "
-              f"2*FFMA+FMUL+FADD+MUFU = {static} (prologue, both sides of "
-              "every branch and the IEEE division sequences included)",
-              flush=True)
+              f"2*FFMA+FMUL+FADD+MUFU = {static} (the draw and write-out of "
+              "a pose, both sides of every branch and the IEEE division "
+              "sequences included)", flush=True)
+        check(sass["DFMA"] + sass["DMUL"] + sass["DADD"] == 0,
+              "the chain's static terms did not fold at compile time: the "
+              "Speed kernel's SASS holds double-precision arithmetic")
 
     # 3. Kernel against its plain version at B_CHECK, same inputs and the
     # same uploaded seed table.
@@ -359,11 +370,16 @@ def main() -> int:
     lanes_e = lm_kernel.solve_kernel(plan, tr, tt, x0, fmad=False)
     torch.cuda.synchronize()
     lanes_equal(lanes_e, lanes_p, "main config")
+    check(int(lanes_e.lane_iters)
+          == int(lm_kernel.pose_lane_iters(lanes_p.active_iters)),
+          "the kernel's pose iterations differ from the plain loop's")
     print(f"uncontracted kernel vs plain @B={B_CHECK}: every lane's x, f, "
           f"success, restart index and iterations bitwise equal; the inputs "
           f"need {int(lanes_p.active_iters.sum()) / B_CHECK:.1f} "
-          f"lane-iterations per solve, the kernel's warps ran "
-          f"{int(lanes_e.lane_iters) / B_CHECK:.1f}, the lockstep loop "
+          f"lane-iterations per solve, the kernel's pose groups ran "
+          f"{int(lanes_e.lane_iters) / B_CHECK:.1f} (equal to the plain "
+          f"loop's per-pose count), its warps executed "
+          f"{lm_kernel.exec_slots(lanes_e) / B_CHECK:.1f} slots, the lockstep loop "
           f"{int(lanes_p.lane_iters) / B_CHECK:.1f}", flush=True)
     k, max_abs_err = compare_contracted(robot, lm_kernel, plan, tr, tt, x0,
                                         lanes_p, "main config")
@@ -385,6 +401,8 @@ def main() -> int:
     # the main path), both times, and the work these inputs need.
     tr, tt, x0 = problem(robot, B_MAIN, seed=2)
     kernel_ms = event_ms(lambda: lm_kernel.solve_kernel(plan, tr, tt, x0), 5)
+    speed_sched = schedule_line(lm_kernel, lm_kernel.solve_kernel(
+        plan, tr, tt, x0), f"Speed kernel @B={B_MAIN}")
     plain_out = []
     plain_ms = 1e3 * timed(lambda: plain_out.append(lm_kernel.solve_plain(
         plan, tr, tt, x0, track_active=True)), 1)
@@ -409,6 +427,21 @@ def main() -> int:
           f"{ops_iter * needed / (kernel_ms * 1e-3) / 1e12:.2f} TFLOP/s of "
           f"needed work, {100 * lm_bound_ms / kernel_ms:.1f}% of the bound",
           flush=True)
+
+    # One warp alone on the card: 4 poses whose targets lie out of reach
+    # run every iteration of their budget.  Its time per iteration is the
+    # dependent chain no amount of parallel work shortens: the floor of a
+    # launch too small to fill the card (exp_bisect, a late unlimited round).
+    far = tt[:4] + 10.0
+    lone = lm_kernel.solve_kernel(plan, tr[:4], far, x0[:4])
+    lone_trips = lm_kernel.exec_slots(lone) // 32
+    check(lone_trips > cfg.max_iters and not bool(lone.success.any()),
+          "the out-of-reach poses did not run through their restarts")
+    lone_iter_ms = event_ms(lambda: lm_kernel.solve_kernel(
+        plan, tr[:4], far, x0[:4]), 5) / lone_trips
+    print(f"one warp alone: {lone_trips} iterations of 4 out-of-reach poses "
+          f"in {lone_iter_ms * lone_trips:.3f} ms = {1e3 * lone_iter_ms:.2f} "
+          "us per iteration", flush=True)
 
     # 6. The main path, through the user-facing entry points.
     def solve():
@@ -456,6 +489,8 @@ def main() -> int:
     fk_q = check_solutions(robot, qres, qtr, qtt, qcfg.tol_f, "Quality path")
     quality_ms = event_ms(
         lambda: lm_kernel.solve_kernel(qplan, qtr, qtt, qx0), 3)
+    quality_sched = schedule_line(lm_kernel, lm_kernel.solve_kernel(
+        qplan, qtr, qtt, qx0), f"Quality kernel @B={B_QUALITY}")
     print(f"Quality path @B={B_QUALITY} (256 restarts, 64 lanes, 48 "
           f"iterations): success {q_success:.6f}, {B_QUALITY / q_s:.0f} "
           f"solves/s (median of 3, {q_s * 1e3:.2f} ms/batch), kernel "
@@ -490,14 +525,23 @@ def main() -> int:
           and torch.equal(ures.cost[f1], one_round.cost[f1]),
           "unlimited rounds changed a round-1 result")
     check_solutions(robot, ures, tr, tt, cfg.tol_f, "unlimited rounds")
+    # The repeat is timed too: the first solve also builds its plan and the
+    # three later rounds' seed tables on the host.
+    t0 = time.perf_counter()
     again = robot.ik_batch(ucfg, tr, tt, x0, validate_seeds=False)
+    torch.cuda.synchronize()
+    u_warm_s = time.perf_counter() - t0
     check(torch.equal(again.x, ures.x) and torch.equal(again.found, ures.found)
           and torch.equal(again.cost, ures.cost),
           "unlimited rounds are not bitwise repeatable")
+    late_ms = (u_warm_s - main_s) * 1e3 / max(1, u_launches - 1)
     print(f"unlimited rounds @B={B_MAIN} (cap 4): {u_launches} launches in "
           f"one solve, found {int(ures.found.sum())} (one round "
           f"{int(f1.sum())}), round-1 results bitwise kept, repeat bitwise "
-          f"identical, {u_s * 1e3:.2f} ms, "
+          f"identical, {u_s * 1e3:.2f} ms the first time (plan and seed "
+          f"tables built on the host), {u_warm_s * 1e3:.2f} ms repeated: "
+          f"{late_ms:.2f} ms per round after the first, against the "
+          f"one-round solve's {main_s * 1e3:.2f}; "
           f"{int(ures.lane_iters) / B_MAIN:.1f} lane-iters/solve", flush=True)
 
     # 9. Option cases at B_OPT: uncontracted kernel bitwise equal to plain.
@@ -583,7 +627,7 @@ def main() -> int:
               f"warp_probe cases differ from plain: {probe}")
         check(n_launch == len(cases),
               f"warp_probe launched {n_launch} kernels for {cases}")
-        ms = event_ms(lambda: each(exp_warp_probe.run_kernel, cases), 20)
+        ms = event_ms(exp_warp_probe.prepare_many(cases, "cuda"), 20)
         # Each int32 output written once; the int8 one is a quarter of that.
         nbytes = sum(1 if c == "int8_store" else 4 for c in cases) * 8 * 256
         b_ms, b_by = bound(0, nbytes)
@@ -597,24 +641,52 @@ def main() -> int:
         check(torch.equal(exp_warp_probe.library_case(name, "cuda"),
                           exp_warp_probe.run_kernel(name, "cuda")),
               f"warp_probe {name} differs from its library call")
-    wp["fill"]["library_ms"] = event_ms(
+    # Kernel and library calls in turns, both prepared (device, dtype, case
+    # numbers and stream resolved once) and both by event_ms; then what each
+    # side's kernels take on the device alone, from the profiler, so that
+    # the gap splits into host path and device time.
+    fill = exp_warp_probe.prepare_many(lib_cases, "cuda")
+    lib_calls = exp_warp_probe.prepare_library(lib_cases, "cuda")
+    check(all(torch.equal(a, b) for a, b in zip(fill(), lib_calls())),
+          "the prepared fill launches differ from the prepared library calls")
+    lib_ms, fill_ms = [], []
+    for _ in range(3):
+        lib_ms.append(event_ms(lib_calls, 20))
+        fill_ms.append(event_ms(fill, 20))
+    wp["fill"]["ms"] = sorted(fill_ms)[1]
+    wp["fill"]["library_ms"] = sorted(lib_ms)[1]
+    wp["fill"]["library_unprepared_ms"] = event_ms(
         lambda: each(exp_warp_probe.library_case, lib_cases), 20)
+    for side, fn in (("device_ms", fill), ("library_device_ms", lib_calls)):
+        split = profile_split(fn, 20)
+        wp["fill"][side] = None if split is None else \
+            sum(split["kernels"].values()) / 20
+
+    def dev_text(v):
+        return "not measured" if v is None else f"{v:.4f} ms"
     print("warp_probe: " + "; ".join(
         f"{len(g['cases'])} {name} cases exact (|d| {g['max_abs_err']:g}), "
         f"{g['ms']:.4f} ms for the launches, plain {g['plain_ms']:.3f} ms"
         for name, g in wp.items())
         + f"; the fill cases as library calls {wp['fill']['library_ms']:.4f} "
-        "ms", flush=True)
+        f"ms (median of 3 turns each: kernel "
+        + ", ".join(f"{v:.4f}" for v in fill_ms) + "; library "
+        + ", ".join(f"{v:.4f}" for v in lib_ms) + "; not prepared, as "
+        f"library_case makes them, {wp['fill']['library_unprepared_ms']:.4f})"
+        f"; device time alone (profiler, per turn of four): the fill kernels "
+        f"{dev_text(wp['fill']['device_ms'])}, the library's "
+        f"{dev_text(wp['fill']['library_device_ms'])}", flush=True)
 
     # 10c. exp_bisect: each variant against plain, then its entry point.
     prob = exp_bisect.make_problem(robot.fk_batch, robot.spec, "cuda")
-    bis_err, bis_needed, bis_plain_ms = 0.0, 0, 0.0
+    bis_err, bis_needed, bis_plain_ms, bis_depth = 0.0, 0, 0.0, 0
     for name, max_iters, group_stop in exp_bisect.VARIANTS:
         pl = []
         bis_plain_ms += 1e3 * timed(lambda: pl.append(
             exp_bisect.plain_variant_lanes(prob, max_iters, group_stop,
                                            track_active=True)), 1)
         bis_needed += int(pl[0].active_iters.sum())
+        bis_depth += int(pl[0].active_iters.max())
         px, pf = exp_bisect.lanes_to_outputs(pl[0])
         ex, ef = exp_bisect.kernel_variant(prob, max_iters, group_stop,
                                            fmad=False)
@@ -655,7 +727,12 @@ def main() -> int:
           f"lanes; 2-round reseeding solve found {rows[-1]['succ']} of "
           f"{exp_bisect.P}; {bis_launches} launches in its entry point; "
           f"{bis_ms:.3f} ms for the three variants, plain "
-          f"{bis_plain_ms:.0f} ms", flush=True)
+          f"{bis_plain_ms:.0f} ms; its 2,048 lanes fill 64 warps of the "
+          f"card's thousands, so beside the operations bound "
+          f"({bis_bound_ms:.4f} ms) stands a latency bound: the variants' "
+          f"longest poses run {bis_depth} iterations, x {1e3 * lone_iter_ms:.2f}"
+          f" us for one warp alone = {bis_depth * lone_iter_ms:.3f} ms",
+          flush=True)
 
     # 11. Where the device time goes on the two solve paths.
     for what, fn, b in (("main path", solve, B_MAIN),
@@ -684,7 +761,13 @@ def main() -> int:
          "bound_by": lm_bound_by, "library_ms": None,
          "quality_ms": quality_ms, "quality_plain_ms": quality_plain_ms,
          "quality_launches": q_launches, "unlimited_launches": u_launches,
-         "registers": registers},
+         "registers": registers, "occupancy": occupancy,
+         "schedule": {"speed": speed_sched, "quality": quality_sched},
+         "fp32_ops_needed": ops_iter, "sass_static": sass,
+         "lone_warp_us_per_iteration": 1e3 * lone_iter_ms,
+         "unlimited_ms": u_s * 1e3, "unlimited_repeat_ms": u_warm_s * 1e3,
+         "unlimited_late_round_ms": late_ms,
+         "build_wall_s": build_wall_s},
         {"name": "fp32_peak", "route": "cuda",
          "source": "optik_tpu_torch/csrc/fp32_peak.cu",
          "replaces": "benchmarks/bench_vpu_peak.py:73",
@@ -702,7 +785,8 @@ def main() -> int:
          "replaces": "benchmarks/exp_bisect.py:68",
          "launches": bis_launches, "max_abs_err": bis_err, "ms": bis_ms,
          "plain_ms": bis_plain_ms, "bound_ms": bis_bound_ms,
-         "bound_by": bis_bound_by, "library_ms": None},
+         "bound_by": bis_bound_by, "library_ms": None,
+         "latency_bound_ms": bis_depth * lone_iter_ms},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

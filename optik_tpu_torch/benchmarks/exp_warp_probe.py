@@ -21,7 +21,10 @@ Run on a machine with an NVIDIA card, from the repository root:
 
 It prints one JSON line per case.  :func:`run_case` dispatches by device:
 ``"cpu"`` gives the plain version, a CUDA device launches the kernel or
-raises.
+raises.  The kernels do nothing but a launch, so what a caller pays is the
+host path in front of it: :func:`prepare_many` resolves the library, the
+case numbers and the stream once and returns a function that launches a
+whole list of cases through one C call (one kernel launch per case).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch
 
 from ..ops.cuda import build
 
-# Kernel launches made by run_kernel since the last reset.
+# Kernel launches made since the last reset, counted where they are made.
 LAUNCHES = 0
 
 SOURCE = build.CSRC / "warp_probe.cu"
@@ -94,6 +97,33 @@ def library_case(name: str, device="cpu") -> torch.Tensor:
                         device=device)[:, None].expand(S, P)
 
 
+def prepare_library(names, device="cuda"):
+    """The library calls of ``names`` with as much resolved ahead as
+    :func:`prepare_many` resolves for the kernels (the device, the dtype,
+    which call each case is): a function that makes the calls and returns
+    their outputs.  Each call still allocates its own output, as a PyTorch
+    call does."""
+    for name in names:
+        if name not in LIBRARY_CASES:
+            raise ValueError(f"no single call computes {name!r}")
+    kw = dict(dtype=torch.int32, device=torch.device(device))
+    zeros, arange = torch.zeros, torch.arange
+    kinds = [{"zeros_i32": 0, "iota_dim1": 1}.get(name, 2) for name in names]
+
+    def run():
+        out = []
+        for kind in kinds:
+            if kind == 0:
+                out.append(zeros((S, P), **kw))
+            elif kind == 1:
+                out.append(arange(P, **kw).expand(S, P))
+            else:
+                out.append(arange(S, **kw)[:, None].expand(S, P))
+        return out
+
+    return run
+
+
 @functools.lru_cache(maxsize=None)
 def load_library():
     """Build the probes at first use and load them: ``(CDLL, BuildInfo)``."""
@@ -101,6 +131,8 @@ def load_library():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.optik_warp_probe.argtypes = [ci, vp, vp]
     lib.optik_warp_probe.restype = ci
+    lib.optik_warp_probe_many.argtypes = [ci, vp, vp, vp]
+    lib.optik_warp_probe_many.restype = ci
     lib.optik_warp_probe_error_string.argtypes = [ci]
     lib.optik_warp_probe_error_string.restype = ctypes.c_char_p
     lib.optik_warp_probe_cases.argtypes = []
@@ -110,27 +142,60 @@ def load_library():
     return lib, info
 
 
-def run_kernel(name: str, device="cuda") -> torch.Tensor:
-    """Launch case ``name`` on a CUDA device; launches on the current stream
-    and does not synchronise."""
-    global LAUNCHES
-    which = _case_index(name)
+def prepare_many(names, device="cuda"):
+    """A function that launches the cases ``names`` on a CUDA device, one
+    kernel launch each through one C call, and returns their outputs (a
+    list of (8, 256) tensors, views of one allocation).
+
+    Everything that does not change between calls is resolved here: the
+    library, the case numbers, the device and the stream (PyTorch's current
+    stream of ``device`` at this moment).  A call does not synchronise.
+    """
+    which = [_case_index(name) for name in names]
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"the probe kernels run on a CUDA device, not "
                          f"{device}")
     lib, _ = load_library()
-    dtype = torch.int8 if name == "int8_store" else torch.int32
-    with torch.cuda.device(device):
-        out = torch.empty((S, P), dtype=dtype, device=device)
-        rc = lib.optik_warp_probe(
-            which, out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
+    n = len(which)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    handle = torch.cuda.current_stream(index).cuda_stream
+    cases = (ctypes.c_int * n)(*which)
+    ptrs = (ctypes.c_void_p * n)()
+    byte_case = [name == "int8_store" for name in names]
+    launch = lib.optik_warp_probe_many
+
+    def launch_all():
+        global LAUNCHES
+        buf = torch.empty((n, S, P), dtype=torch.int32, device=device)
+        base = buf.data_ptr()
+        for i in range(n):
+            ptrs[i] = base + 4 * S * P * i
+        rc = launch(n, cases, ptrs, handle)
         if rc != 0:
             raise RuntimeError("optik_warp_probe failed: " +
                                lib.optik_warp_probe_error_string(rc).decode())
-        LAUNCHES += 1
-    return out
+        LAUNCHES += n
+        # An int8 case fills the first quarter of its int32 slab.
+        return [buf[i].view(torch.int8).reshape(-1)[:S * P].reshape(S, P)
+                if byte_case[i] else buf[i] for i in range(n)]
+
+    def run():
+        # The launch needs the stream's device current; entering the context
+        # is most of a small launch's host cost, so only where it differs.
+        if torch.cuda.current_device() == index:
+            return launch_all()
+        with torch.cuda.device(index):
+            return launch_all()
+
+    return run
+
+
+def run_kernel(name: str, device="cuda") -> torch.Tensor:
+    """Launch case ``name`` on a CUDA device; launches on the current stream
+    and does not synchronise."""
+    return prepare_many((name,), device)()[0]
 
 
 def run_case(name: str, device="cuda") -> torch.Tensor:
@@ -148,8 +213,11 @@ def run_all(device="cuda", cases=CASES) -> dict:
     ``{name: {"exact", "max_abs_err"}}``, the largest ``|got - want|`` and
     whether type, shape and every value agree."""
     out = {}
-    for name in cases:
-        got = run_case(name, device)
+    if torch.device(device).type == "cuda":
+        results = prepare_many(cases, device)()
+    else:
+        results = [run_case(name, device) for name in cases]
+    for name, got in zip(cases, results):
         want = plain_case(name, device)
         same = got.dtype == want.dtype and got.shape == want.shape
         err = float((got.double() - want.double()).abs().max()) if same \

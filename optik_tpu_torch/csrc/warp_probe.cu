@@ -19,10 +19,13 @@
 // The plain torch versions are
 // optik_tpu_torch/benchmarks/exp_warp_probe.py:plain_case.
 //
-// What bounds it on this card: nothing but the launch; each case writes 8 KB
-// (2 KB for int8) once.  Design: one block of 1,024 threads, two elements
-// per thread (rows r and r + 4), so that the all-elements exit test of case
-// 6 is one block-wide vote.
+// What bounds it on this card: nothing but the launch and the host path in
+// front of it; each case writes 8 KB (2 KB for int8) once.  Design: one
+// block of 1,024 threads, two elements per thread (rows r and r + 4), so
+// that the all-elements exit test of case 6 is one block-wide vote; and one
+// C call that launches a whole list of cases (optik_warp_probe_many), one
+// kernel launch per case, so that a caller pays the trip through the
+// binding once.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libwarp_probe.so warp_probe.cu
@@ -124,6 +127,16 @@ int optik_warp_probe(int which, void* out, void* stream) {
     default: return -1;
   }
   return (int)cudaGetLastError();
+}
+
+// Runs the `n` cases which[0..n) into outs[0..n), one kernel launch per
+// case, on `stream`; returns the first launch's error, or 0.
+int optik_warp_probe_many(int n, const int* which, void* const* outs, void* stream) {
+  for (int i = 0; i < n; ++i) {
+    const int rc = optik_warp_probe(which[i], outs[i], stream);
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 }  // extern "C"

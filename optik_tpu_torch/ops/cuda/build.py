@@ -3,10 +3,12 @@
 Every kernel of the port is a ``.cu`` file under ``optik_tpu_torch/csrc/``
 with a plain C interface, compiled by ``nvcc`` for ``sm_90a`` and loaded with
 ``ctypes``.  The library goes to ``build/optik_tpu_torch/<name>-<hash>/`` at
-the repository root, keyed by a hash of the source and the flags: an edit or
-another variant (``-D`` flags, ``--fmad=false``) builds anew, and a second
-process reuses the build.  The ``-Xptxas -v`` report (registers, spills) is
-kept beside the library in ``ptxas.txt``.
+the repository root, keyed by a hash of the source, the flags and the text
+of any generated header: an edit, another variant (``-D`` flags,
+``--fmad=false``) or another robot's chain constants builds anew, and a
+second process reuses the build.  Generated headers are written into that
+directory, which is on the include path; the ``-Xptxas -v`` report
+(registers, spills) is kept beside the library in ``ptxas.txt``.
 
 :func:`build_library` may be called from several threads at once (one
 ``nvcc`` process each), which is how a caller builds many variants in
@@ -24,7 +26,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import NamedTuple, Optional, Sequence
+from typing import Mapping, NamedTuple, Optional, Sequence
 
 CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[3] / "build"
@@ -59,10 +61,25 @@ def cuda_tool(name: str) -> str:
     return found
 
 
+def build_key(source: pathlib.Path, flags: Sequence[str],
+              headers: Mapping[str, str]) -> str:
+    """The key of one build: a hash of the source, the full nvcc flags and
+    the generated headers' names and text."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode())
+    for name in sorted(headers):
+        digest.update(f"\0{name}\0{headers[name]}".encode())
+    return digest.hexdigest()[:16]
+
+
 def build_library(source: pathlib.Path, flags: Sequence[str] = (),
-                  fmad: bool = True):
+                  fmad: bool = True,
+                  headers: Optional[Mapping[str, str]] = None):
     """Compile ``source`` with ``NVCC_FLAGS + flags`` and load it:
     ``(ctypes.CDLL, BuildInfo)``.
+
+    ``headers`` maps file names to the text of headers generated for this
+    build (``#include "name"`` in the source finds them); their text is part
+    of the key.
 
     ``fmad=False`` adds ``--fmad=false``: without multiply-add contraction a
     kernel rounds every operation as torch's elementwise CUDA kernels do,
@@ -70,8 +87,8 @@ def build_library(source: pathlib.Path, flags: Sequence[str] = (),
     possible.
     """
     flags = NVCC_FLAGS + tuple(flags) + (() if fmad else ("--fmad=false",))
-    key = hashlib.sha256(source.read_bytes()
-                         + " ".join(flags).encode()).hexdigest()[:16]
+    headers = dict(headers or {})
+    key = build_key(source, flags, headers)
     out_dir = BUILD_ROOT / f"{source.stem}-{key}"
     lib_path = out_dir / f"lib{source.stem}.so"
     log_path = out_dir / "ptxas.txt"
@@ -80,9 +97,15 @@ def build_library(source: pathlib.Path, flags: Sequence[str] = (),
         out_dir.mkdir(parents=True, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
             tmp_lib = pathlib.Path(tmp) / lib_path.name
+            for name, text in headers.items():
+                # Written whole, then moved: a second process building the
+                # same key never reads half a header.
+                (pathlib.Path(tmp) / name).write_text(text)
+                os.replace(pathlib.Path(tmp) / name, out_dir / name)
             t0 = time.perf_counter()
             proc = subprocess.run(
-                [cuda_tool("nvcc"), *flags, "-o", str(tmp_lib), str(source)],
+                [cuda_tool("nvcc"), *flags, "-I", str(out_dir), "-o",
+                 str(tmp_lib), str(source)],
                 capture_output=True, text=True)
             seconds = time.perf_counter() - t0
             if proc.returncode != 0:

@@ -2,10 +2,12 @@
 
 The counterpart of ``optik_tpu/ops/pallas/lm_kernel.py:build_kernel_solver``.
 The kernel (``optik_tpu_torch/csrc/lm_kernel.cu``) runs the whole lockstep
-projected-LM solve with one thread per lane; this module builds it with
-``nvcc`` at first use, binds its plain C entry point with ``ctypes``, lays
-out the inputs, launches it, and picks each pose's winner in torch, as the
-JAX package does outside its Pallas kernel (``lm_kernel.py:345-377``).
+projected-LM solve with one thread per lane, thread groups drawing poses
+from a work queue; this module writes the robot's chain constants into a
+header (:func:`chain_header`), builds the kernel with ``nvcc`` at first use,
+binds its plain C entry point with ``ctypes``, lays out the inputs, launches
+it, and picks each pose's winner in torch, as the JAX package does outside
+its Pallas kernel (``lm_kernel.py:345-377``).
 
 Dispatch is by device: :func:`solve_lanes` sends a CPU tensor to
 :func:`solve_plain` (the same function through
@@ -19,8 +21,10 @@ with and without reseeding, per-axis weights, ``restart_offset`` and
 ``lane0_stream`` (both on the host: they only change the seed table and the
 start points), a constant ``ee_offset`` folded into the chain tip, any
 S = min(seed_batch, total_restarts) from 1 to 64, DoF 1..10, float32.  One
-library holds one instantiation (DoF, mode, weighted, two-warp poses,
-contraction) and is built when a solve first needs it.
+library holds one instantiation (robot chain, mode, weighted, two-warp
+poses, contraction) and is built when a solve first needs it; joint limits,
+the tip and every option are run-time, so a new ``ee_offset`` or config
+reuses the library.
 """
 
 from __future__ import annotations
@@ -46,9 +50,8 @@ LAUNCHES = 0
 SOURCE = build.CSRC / "lm_kernel.cu"
 MAX_DOF = 10
 MAX_SEED_LANES = 64
-_JOINT_FLOATS = 54
-_TIP_FLOATS = 13
 _NUM_OPTS = 19
+CHAIN_HEADER = "optik_chain.h"
 
 
 class LaneResult(NamedTuple):
@@ -59,16 +62,124 @@ class LaneResult(NamedTuple):
     success: torch.Tensor        # (B, S) bool
     restart_index: torch.Tensor  # (B, S) int32, local to the call (0..R-1)
     succ_iters: torch.Tensor     # (B, S) int32
-    lane_iters: torch.Tensor     # 0-d int64, see launch_lanes / solve_plain
+    # 0-d int64.  From the kernel: the sum over poses of the iterations the
+    # pose's group ran, times S.  From the plain version: the lockstep
+    # loop's count times B * S.
+    lane_iters: torch.Tensor
     # (B, S) int32 iterations each lane ran before it stopped; only from
     # solve_plain(track_active=True).
     active_iters: Optional[torch.Tensor] = None
+    # Only from the kernel, per launched warp: its loop trips ((warps,)
+    # int32; :func:`exec_slots` sums them) and the %globaltimer nanoseconds
+    # of its start, its last draw from the pose queue and its exit
+    # ((warps, 3) int64; :func:`schedule_profile` reads them).
+    warp_trips: Optional[torch.Tensor] = None
+    warp_times: Optional[torch.Tensor] = None
+
+
+def chain_header(consts) -> str:
+    """The text of ``optik_chain.h`` for one chain: the joints' constants
+    the kernel folds at compile time.
+
+    Per joint the origin rotation (row-major), the origin translation, the
+    axis and whether it is prismatic, each value the exact double of the
+    plain version's Python float (a C++17 hexadecimal literal), plus the
+    DoF and whether the chain has a tip.  The tip's values, the joint
+    limits and every solver option are run-time and not in here, so two
+    ``ee_offset``s or configs of one robot share a header, hence a library.
+    Each joint's comment counts its constants that are a static 0, +1 or
+    -1: the terms ``soa.smul`` / ``sadd`` / ``ssub`` fold away.
+    """
+    org_r, org_t, axes, pris, _, _, has_tip = consts
+    a = len(axes)
+
+    def row(values):
+        values = [float(v) for v in values]
+        if not all(np.isfinite(values)):
+            raise ValueError("a chain constant is not finite")
+        return "{" + ", ".join(v.hex() for v in values) + "}"
+
+    def table(name, width, rows):
+        body = ",\n".join("      " + row(r) for r in rows)
+        return (f"__host__ __device__ constexpr double {name}(int j, int i) "
+                f"{{\n  constexpr double v[kDof][{width}] = {{\n{body}}};\n"
+                "  return v[j][i];\n}\n")
+
+    flat_r = [[v for r in org_r[j] for v in r] for j in range(a)]
+    lines = [
+        "// Joint constants of one serial chain for "
+        "optik_tpu_torch/csrc/lm_kernel.cu,",
+        "// written by optik_tpu_torch/ops/cuda/lm_kernel.py:chain_header.",
+        "#pragma once",
+        "namespace optik_chain {",
+        f"constexpr int kDof = {a};",
+        f"constexpr bool kHasTip = {'true' if has_tip else 'false'};"]
+    for j in range(a):
+        vals = flat_r[j] + list(org_t[j]) + list(axes[j])
+        lines.append(f"// joint {j}: static 0 / +1 / -1 constants: "
+                     f"{sum(v == 0.0 for v in vals)} / "
+                     f"{sum(v == 1.0 for v in vals)} / "
+                     f"{sum(v == -1.0 for v in vals)} of {len(vals)}")
+    lines += [
+        table("org_r", 9, flat_r), table("org_t", 3, org_t),
+        table("axis", 3, axes),
+        "__host__ __device__ constexpr bool prismatic(int j) {\n"
+        "  constexpr bool v[kDof] = {"
+        + ", ".join("true" if p else "false" for p in pris)
+        + "};\n  return v[j];\n}",
+        "}  // namespace optik_chain", ""]
+    return "\n".join(lines)
+
+
+_HEADERS = {}
+
+
+def _header_of(spec, consts) -> str:
+    """:func:`chain_header` of ``consts``, formatted once per chain (a
+    plan is built per config, and the text is a quarter of a millisecond)."""
+    key = (spec.origin_r.tobytes(), spec.origin_t.tobytes(),
+           spec.axis.tobytes(), spec.prismatic.tobytes(), consts[6])
+    if key not in _HEADERS:
+        _HEADERS[key] = chain_header(consts)
+    return _HEADERS[key]
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(dof: int, quality: bool = False, weighted: bool = False,
+def _load_library(header: str, quality: bool, weighted: bool, wide: bool,
+                  fmad: bool):
+    flags = (f"-DOPTIK_QUALITY={int(quality)}",
+             f"-DOPTIK_WEIGHTED={int(weighted)}",
+             f"-DOPTIK_WIDE={int(wide)}")
+    lib, info = build.build_library(SOURCE, flags, fmad,
+                                    headers={CHAIN_HEADER: header})
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.optik_lm_solve.argtypes = ([vp, ci, vp] + [ci] * 7 + [vp] * 14)
+    lib.optik_lm_solve.restype = ci
+    lib.optik_lm_error_string.argtypes = [ci]
+    lib.optik_lm_error_string.restype = ctypes.c_char_p
+    lib.optik_lm_grid.argtypes = [ci, ci]
+    lib.optik_lm_grid.restype = ci
+    for name in ("optik_lm_block_threads", "optik_lm_runtime_floats",
+                 "optik_lm_num_opts", "optik_lm_variant",
+                 "optik_lm_blocks_per_sm"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ci
+    dof = int(header.split("kDof = ")[1].split(";")[0])
+    has_tip = "kHasTip = true" in header
+    want = (dof | int(quality) << 8 | int(weighted) << 9 | int(wide) << 10
+            | int(has_tip) << 11)
+    if (lib.optik_lm_runtime_floats() != 13 + 2 * dof
+            or lib.optik_lm_num_opts() != _NUM_OPTS
+            or lib.optik_lm_variant() != want):
+        raise RuntimeError(f"{info.path} does not match this wrapper's "
+                           "layout or the requested instantiation")
+    return lib, info
+
+
+def load_library(header: str, quality: bool = False, weighted: bool = False,
                  wide: bool = False, fmad: bool = True):
-    """Build one instantiation of the kernel at first use and load it:
+    """Build one instantiation of the kernel for the chain of ``header``
+    (:func:`chain_header`) at first use and load it:
     ``(CDLL, build.BuildInfo)``.
 
     ``quality`` compiles the Quality-mode loop (best tracking, success
@@ -79,28 +190,20 @@ def load_library(dof: int, quality: bool = False, weighted: bool = False,
     card (the parity check of chip_smoke.py and tests/test_torch_cuda.py).
     The solver itself uses the contracted build.
     """
-    flags = (f"-DOPTIK_DOF={dof}", f"-DOPTIK_QUALITY={int(quality)}",
-             f"-DOPTIK_WEIGHTED={int(weighted)}", f"-DOPTIK_WIDE={int(wide)}")
-    lib, info = build.build_library(SOURCE, flags, fmad)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.optik_lm_solve.argtypes = ([vp, ci, vp] + [ci] * 7 + [vp] * 11)
-    lib.optik_lm_solve.restype = ci
-    lib.optik_lm_error_string.argtypes = [ci]
-    lib.optik_lm_error_string.restype = ctypes.c_char_p
-    for name in ("optik_lm_block_threads", "optik_lm_joint_floats",
-                 "optik_lm_tip_floats", "optik_lm_max_dof",
-                 "optik_lm_num_opts", "optik_lm_variant"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ci
-    want = dof | int(quality) << 8 | int(weighted) << 9 | int(wide) << 10
-    if (lib.optik_lm_joint_floats() != _JOINT_FLOATS
-            or lib.optik_lm_tip_floats() != _TIP_FLOATS
-            or lib.optik_lm_max_dof() != MAX_DOF
-            or lib.optik_lm_num_opts() != _NUM_OPTS
-            or lib.optik_lm_variant() != want):
-        raise RuntimeError(f"{info.path} does not match this wrapper's "
-                           "layout or the requested instantiation")
-    return lib, info
+    return _load_library(header, bool(quality), bool(weighted), bool(wide),
+                         bool(fmad))
+
+
+def library_report(lib, info) -> dict:
+    """Registers, spills, block size and resident warps per SM of a loaded
+    LM library on the current device, and its nvcc seconds."""
+    use = build.ptxas_usage(info.ptxas, "lm_solve_kernel")
+    block = lib.optik_lm_block_threads()
+    per_sm = lib.optik_lm_blocks_per_sm()
+    return {"registers": use["registers"], "stack": use["stack"],
+            "spill_bytes": use["spill_stores"] + use["spill_loads"],
+            "block_threads": block, "blocks_per_sm": per_sm,
+            "warps_per_sm": per_sm * block // 32, "nvcc_s": info.seconds}
 
 
 def fold_ee_offset(consts, ee_offset):
@@ -126,36 +229,14 @@ def fold_ee_offset(consts, ee_offset):
     return org_r, org_t, axes, pris, new_tip_r, new_tip_t, has
 
 
-def _rodrigues_coeffs(axis):
-    """(c0, cc, cs, c1) with R = c0 + cos*cc + sin*cs + (1-cos)*c1 entrywise,
-    the same terms ``soa.rodrigues`` keeps after its static folding."""
-    kx, ky, kz = axis
-    c0, cc, cs, c1 = (np.zeros((3, 3)) for _ in range(4))
-    for i, kk in enumerate((ky * ky + kz * kz, kx * kx + kz * kz,
-                            kx * kx + ky * ky)):
-        if kk == 1.0:
-            cc[i, i] = 1.0
-        else:
-            c0[i, i], c1[i, i] = 1.0, -kk
-    for (i, j), sk, kab in (((0, 1), -kz, kx * ky), ((0, 2), ky, kx * kz),
-                            ((1, 0), kz, kx * ky), ((1, 2), -kx, ky * kz),
-                            ((2, 0), -ky, kx * kz), ((2, 1), kx, ky * kz)):
-        cs[i, j], c1[i, j] = sk, kab
-    return c0, cc, cs, c1
-
-
 def pack_chain(consts, lower, upper) -> np.ndarray:
-    """The kernel's flat float32 chain array (layout: csrc/lm_kernel.cu)."""
-    org_r, org_t, axes, pris, tip_r, tip_t, has_tip = consts
-    rows = []
-    for j in range(len(axes)):
-        c0, cc, cs, c1 = _rodrigues_coeffs(axes[j])
-        rows.append(np.concatenate([
-            np.ravel(org_r[j]), org_t[j], axes[j], c0.ravel(), cc.ravel(),
-            cs.ravel(), c1.ravel(), [lower[j], upper[j], float(pris[j])]]))
-    rows.append(np.concatenate([np.ravel(tip_r), tip_t, [float(has_tip)]]))
-    out = np.concatenate(rows).astype(np.float32)
-    assert out.size == len(axes) * _JOINT_FLOATS + _TIP_FLOATS
+    """What of the chain the kernel reads at run time, as its flat float32
+    array: tip_r (9), tip_t (3), has_tip (1), lower (A), upper (A).  The
+    joints' constants are compile-time (:func:`chain_header`)."""
+    _, _, axes, _, tip_r, tip_t, has_tip = consts
+    out = np.concatenate([np.ravel(tip_r), tip_t, [float(has_tip)], lower,
+                          upper]).astype(np.float32)
+    assert out.size == 13 + 2 * len(axes)
     return out
 
 
@@ -232,7 +313,8 @@ def check_supported(spec, cfg: SolverConfig) -> None:
 class KernelPlan:
     """Everything one (robot, config, ee_offset) solve needs, built once.
 
-    Holds the folded chain constants, the packed kernel chain, the LM
+    Holds the folded chain constants, the kernel's chain header
+    (compile-time joints) and run-time chain array (tip, limits), the LM
     options, the mode, weights and success cap, and the restart seed tables:
     one per ``restart_offset``, made on the host and uploaded once per
     device; the kernel and :func:`solve_plain` read the same copy.
@@ -260,6 +342,7 @@ class KernelPlan:
         self.lin_id = soa.weights_are_identity(cfg.linear_weight)
         self.ang_id = soa.weights_are_identity(cfg.angular_weight)
         self.weighted = not (self.lin_id and self.ang_id)
+        self.header = _header_of(spec, consts)
         self.chain = pack_chain(consts, self.lower, self.upper)
         o = self.opts
         self.opt_array = np.array(
@@ -273,6 +356,12 @@ class KernelPlan:
     def wide(self, freeze: bool) -> bool:
         """Whether a launch needs the two-warp exchange instantiation."""
         return self.s_pad == 64 and (self.cap > 0 if self.quality else freeze)
+
+    def library(self, freeze: bool, fmad: bool = True):
+        """The kernel library a launch of this plan uses:
+        ``(CDLL, build.BuildInfo)``, built at first use."""
+        return load_library(self.header, self.quality, self.weighted,
+                            self.wide(freeze), fmad)
 
     def table(self, device: torch.device, off: int = 0) -> torch.Tensor:
         """The (R, A) float32 seed table on ``device``: row i is the draw
@@ -342,9 +431,13 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
     CUDA tensors.  ``freeze`` turns the Speed-mode group stop on.  Launches
     on the current stream and does not synchronise.
 
-    ``lane_iters`` counts the lane-iterations the kernel executed: the sum
-    over warps of the warp's loop count times its live lanes (a warp exits
-    on its own; padding lanes of a pose are not counted).
+    ``lane_iters`` is the work the poses took: the sum over poses of the
+    iterations the pose's group ran (until its last lane stopped), times S.
+    It does not depend on how the queue packed poses into warps, and is
+    the one reduction a launch pays (two for a pose across two warps); the
+    schedule probe (``warp_trips``, ``warp_times``) comes back as the kernel
+    wrote it, for :func:`exec_slots` and :func:`schedule_profile` to reduce
+    when someone asks.
     """
     global LAUNCHES
     a, s = plan.a, plan.s
@@ -371,17 +464,28 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     if plan.quality and freeze:
         raise ValueError("the group freeze is Speed mode's")
-    lib, _ = load_library(a, plan.quality, plan.weighted, plan.wide(freeze),
-                          fmad)
-    block = lib.optik_lm_block_threads()
-    n_warps = -(-b * plan.s_pad // block) * block // 32
+    lib, _ = plan.library(freeze, fmad)
+    halves = 2 if plan.s_pad == 64 else 1
+    n_warps = lib.optik_lm_grid(b, plan.s_pad) \
+        * lib.optik_lm_block_threads() // 32
+    if n_warps < 1:
+        raise RuntimeError("the occupancy query of the LM kernel failed")
     with torch.cuda.device(device):
-        x_out = torch.empty((a, n_lanes), dtype=torch.float32, device=device)
-        f_out = torch.empty(n_lanes, dtype=torch.float32, device=device)
-        succ = torch.empty(n_lanes, dtype=torch.int8, device=device)
-        ridx = torch.empty(n_lanes, dtype=torch.int32, device=device)
-        sit = torch.empty(n_lanes, dtype=torch.int32, device=device)
-        work = torch.empty(n_warps, dtype=torch.int32, device=device)
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=device)
+
+        x_out = empty((a, n_lanes), torch.float32)
+        f_out = empty(n_lanes, torch.float32)
+        succ = empty(n_lanes, torch.int8)
+        ridx = empty(n_lanes, torch.int32)
+        sit = empty(n_lanes, torch.int32)
+        # The queue's counter and the schedule probe, one allocation: times
+        # (int64, so first), trips, pose iterations, counter.
+        probe = empty(7 * n_warps + b * halves + 1, torch.int32)
+        times = probe[:6 * n_warps].view(torch.int64).view(n_warps, 3)
+        trips = probe[6 * n_warps:7 * n_warps]
+        pose_iters = probe[7 * n_warps:-1].view(b, halves)
+        queue = probe[-1:]
         stream = torch.cuda.current_stream(device).cuda_stream
         use_qx0 = reseed and plan.quality
         rc = lib.optik_lm_solve(
@@ -392,18 +496,67 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
             table.data_ptr() if reseed else None,
             qx0.data_ptr() if use_qx0 else None, x_out.data_ptr(),
             f_out.data_ptr(), succ.data_ptr(), ridx.data_ptr(),
-            sit.data_ptr(), work.data_ptr(), stream)
+            sit.data_ptr(), queue.data_ptr(), pose_iters.data_ptr(),
+            trips.data_ptr(), times.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(
                 "optik_lm_solve failed: "
                 + lib.optik_lm_error_string(rc).decode())
         LAUNCHES += 1
-        lane_iters = work.sum(dtype=torch.int64)
+        # A pose across two warps ran until the later of the two was through.
+        if halves == 2:
+            pose_iters = pose_iters.amax(dim=1)
+        lane_iters = pose_iters.sum(dtype=torch.int64)
     return LaneResult(
         x=x_out.reshape(a, b, s).permute(1, 2, 0),
         f=f_out.reshape(b, s), success=succ.reshape(b, s).bool(),
         restart_index=ridx.reshape(b, s), succ_iters=sit.reshape(b, s),
-        lane_iters=lane_iters)
+        lane_iters=lane_iters, warp_trips=trips, warp_times=times)
+
+
+def pose_lane_iters(active_iters: torch.Tensor) -> torch.Tensor:
+    """The kernel's ``lane_iters`` from the plain loop's ``track_active``
+    probe: a pose's group runs until its last lane stops, so the sum over
+    poses of the largest lane count, times S (0-d int64)."""
+    s = active_iters.shape[1]
+    return active_iters.amax(dim=1).sum(dtype=torch.int64) * s
+
+
+def exec_slots(lanes: LaneResult) -> int:
+    """The warp slots a launch executed: every warp's loop trips times 32
+    (it synchronises).  ``lane_iters`` over it is the occupied share of the
+    executed slots.  (A 33..64-lane pose whose two warps do not exchange,
+    uncapped Quality, counts until the later warp is through, while the
+    earlier one waits at the pair's barrier and executes nothing: there the
+    share can pass 1.)"""
+    return 32 * int(lanes.warp_trips.sum(dtype=torch.int64))
+
+
+def schedule_profile(lanes: LaneResult) -> dict:
+    """Where a launch's time went, from the kernel's ``%globaltimer`` probe
+    (one fetch; call it after the launch, it synchronises).
+
+    ``span_ms`` is first warp start to last warp exit.  ``tail_ms`` is what
+    remains of it after the last piece of work was handed out (the last
+    draw from the pose queue): from then on the card only drains.
+    ``exit_ms`` are the times, from the first start, by which 50%, 90%, 99%
+    and all of the warps had left.  Per solve: the lane-iterations the pose
+    groups ran and the warp slots executed (:func:`exec_slots`);
+    ``occupied_share`` is the first over the second.
+    """
+    t = lanes.warp_times.cpu().numpy()
+    start, draw, end = t[:, 0], t[:, 1], t[:, 2]
+    t0 = int(start.min())
+    span = int(end.max()) - t0
+    tail = int(end.max()) - int(draw.max())
+    q = np.quantile(end - t0, [0.5, 0.9, 0.99, 1.0])
+    b, ran, slots = lanes.x.shape[0], int(lanes.lane_iters), exec_slots(lanes)
+    return {"warps": int(t.shape[0]), "span_ms": span / 1e6,
+            "tail_ms": tail / 1e6, "tail_share": tail / max(span, 1),
+            "exit_ms": [float(v) / 1e6 for v in q],
+            "lane_iters_per_solve": ran / b,
+            "executed_slots_per_solve": slots / b,
+            "occupied_share": ran / max(slots, 1)}
 
 
 def solve_kernel(plan: KernelPlan, tgt_r: torch.Tensor, tgt_t: torch.Tensor,
@@ -439,7 +592,8 @@ def plain_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt_r: torch.Tensor,
     points through :func:`lm_soa.lm_loop` in kernel math mode.
 
     ``lane_iters`` is the lockstep loop's count times B*S (every lane runs
-    until the slowest stops).
+    until the slowest stops); :func:`pose_lane_iters` of ``active_iters``
+    is the kernel's count.
     """
     device = seeds.device
     b, s = seeds.shape[:2]

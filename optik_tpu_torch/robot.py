@@ -233,7 +233,11 @@ class Robot:
         each round's hard set to a power-of-two bucket to bound its
         recompiles and scales the pad rows' share out of ``lane_iters`` as
         an estimate; nothing here compiles per shape, so rounds run at
-        their true size and ``lane_iters`` is the exact sum over rounds.
+        their true size and ``lane_iters`` is the exact sum over rounds.  On
+        CUDA a round's ``lane_iters`` is the sum over its poses of the
+        iterations the pose's thread group ran (until its last lane
+        stopped) times the S lanes; on the CPU it is the lockstep loop's
+        count times B * S.
 
         The rounds are driven from the host but stay on the device: per
         round the host reads the indices of the unfound poses (one fetch);

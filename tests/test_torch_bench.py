@@ -125,6 +125,16 @@ def test_warp_probe_run_all_and_library_cases_on_cpu():
         exp_warp_probe.library_case("while_i32_carry")
 
 
+def test_warp_probe_prepared_library_calls_equal_the_single_calls():
+    names = exp_warp_probe.LIBRARY_CASES
+    got = exp_warp_probe.prepare_library(names, "cpu")()
+    assert len(got) == len(names)
+    for name, out in zip(names, got):
+        assert torch.equal(out, exp_warp_probe.library_case(name, "cpu"))
+    with pytest.raises(ValueError, match="no single call"):
+        exp_warp_probe.prepare_library(("int8_store",), "cpu")
+
+
 def test_warp_probe_rejects_unknown_case_and_cpu_launch():
     with pytest.raises(ValueError, match="no probe case"):
         exp_warp_probe.plain_case("iota_dim2")

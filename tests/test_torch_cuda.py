@@ -14,7 +14,11 @@ the arm's self-motion, so that build is held to poses, not joint values.
 The option cases cover what ``chip_smoke.py`` covers: per-axis weights, any
 seed count up to 64 (padded lanes, two-warp poses), Quality mode with and
 without its success cap, ``restart_offset``, ``lane0_stream``, unlimited
-restart rounds, and the three probe kernels.
+restart rounds, and the three probe kernels.  The queue cases hold the
+kernel's schedule to the same bitwise standard at its edges: one pose,
+fewer poses than thread groups, batches that make every group (and every
+pair of warps) draw many poses in one launch, padded lanes inside a group
+that refills, and launches back to back on one stream.
 """
 
 import numpy as np
@@ -43,11 +47,26 @@ def robot():
                                 "panda_hand_tcp", device="cuda")
 
 
-def _problem(robot, seed=0):
+@pytest.fixture(scope="module", autouse=True)
+def libraries(robot):
+    """Build every Panda variant these tests launch, side by side (one nvcc
+    each, about half a minute), instead of one after another at first use."""
+    import concurrent.futures
+
+    header = lm_kernel.KernelPlan(robot.spec, CFG).header
+    # (quality, weighted, wide, fmad)
+    variants = [(q, w, x, f) for q in (False, True) for w in (False, True)
+                for x in (False, True) for f in (False, True)
+                if not (w and x) and (not f or not (w or (q and x)))]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(lambda v: lm_kernel.load_library(header, *v), variants))
+
+
+def _problem(robot, seed=0, b=B):
     rng = np.random.default_rng(seed)
     lo, hi = robot.joint_limits()
-    tr, tt = robot.fk_batch(rng.uniform(lo, hi, size=(B, 7)))
-    x0 = torch.tensor(rng.uniform(lo, hi, size=(B, 7)), dtype=torch.float32,
+    tr, tt = robot.fk_batch(rng.uniform(lo, hi, size=(b, 7)))
+    x0 = torch.tensor(rng.uniform(lo, hi, size=(b, 7)), dtype=torch.float32,
                       device="cuda")
     return tr, tt, x0
 
@@ -145,6 +164,67 @@ def test_option_uncontracted_kernel_is_bitwise_plain(robot, case):
     assert bool(k.success.any())
     # Restart indices stay local to the call.
     assert int(k.restart_index.max()) < plan.r_total
+
+
+# (config, poses).  An H100 holds about 1,056 warps of this kernel: 4,224
+# groups of 8 lanes, 8,448 of 4, 2,112 of 16, 528 pairs of warps.
+QUEUE_CASES = {
+    "one_pose": (CFG, 1),
+    # Fewer poses than one block's groups: three are dead at their first
+    # draw, and 5 is no multiple of a warp's 4 groups.
+    "five_poses": (CFG, 5),
+    "groups_refill_ragged": (CFG, 40003),
+    # Padding lanes (S = 3 in 4 threads, 12 in 16) inside groups that draw
+    # several poses.
+    "three_lanes_refill": (CFG.replace(max_restarts=24, seed_batch=3), 20000),
+    "twelve_lanes_refill": (CFG.replace(max_restarts=48, seed_batch=12),
+                            6000),
+    # A pair of warps draws several poses in one launch, with the Speed
+    # freeze and with a Quality cap (both exchange every iteration).
+    "pair_40_freeze": (CFG.replace(max_restarts=80, seed_batch=40), 8192),
+    "pair_64_freeze": (CFG.replace(max_restarts=128, seed_batch=64), 8192),
+    "pair_40_cap": (QUALITY.replace(max_restarts=80, seed_batch=40,
+                                    quality_max_successes=2), 8192),
+    "pair_64_cap": (QUALITY.replace(max_restarts=128, seed_batch=64,
+                                    quality_max_successes=3), 8192),
+}
+
+
+@pytest.mark.parametrize("case", sorted(QUEUE_CASES))
+def test_queue_edges_uncontracted_kernel_is_bitwise_plain(robot, case):
+    cfg, b = QUEUE_CASES[case]
+    plan = lm_kernel.KernelPlan(robot.spec, cfg)
+    tr, tt, x0 = _problem(robot, seed=5, b=b)
+    k = lm_kernel.solve_kernel(plan, tr, tt, x0, fmad=False)
+    p = lm_kernel.solve_plain(plan, tr, tt, x0, track_active=True)
+    for name in LANE_FIELDS:
+        assert torch.equal(getattr(k, name), getattr(p, name)), name
+    assert bool(k.success.any())
+    # The groups ran each pose until its last lane stopped, no longer; the
+    # warps executed at least those slots.
+    assert int(k.lane_iters) == int(lm_kernel.pose_lane_iters(p.active_iters))
+    assert lm_kernel.exec_slots(k) * plan.s >= int(k.lane_iters) * min(
+        plan.s_pad, 32)
+    prof = lm_kernel.schedule_profile(k)
+    assert prof["span_ms"] > 0 and 0 <= prof["tail_share"] <= 1
+
+
+def test_back_to_back_launches_reset_the_queue(robot):
+    """Launches on one stream with no sync between them: each zeroes the
+    queue's counter on the stream before it starts."""
+    plan = lm_kernel.KernelPlan(robot.spec, CFG)
+    first = _problem(robot, seed=6, b=6000)
+    second = _problem(robot, seed=7, b=777)
+    runs = [lm_kernel.solve_kernel(plan, *prob, fmad=False)
+            for prob in (first, second, first, second)]
+    torch.cuda.synchronize()
+    for k, prob in zip(runs, (first, second)):
+        p = lm_kernel.solve_plain(plan, *prob)
+        for name in LANE_FIELDS:
+            assert torch.equal(getattr(k, name), getattr(p, name)), name
+    for a, b in ((runs[0], runs[2]), (runs[1], runs[3])):
+        for name in LANE_FIELDS:
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
 
 
 def test_options_change_the_solve(robot):

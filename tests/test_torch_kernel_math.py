@@ -1,0 +1,193 @@
+"""The CUDA kernel's arithmetic, compiled for the host, against the plain
+version.
+
+There is no CUDA compiler on a CPU-only machine, but the math of
+``optik_tpu_torch/csrc/lm_kernel.cu`` (everything between ``namespace {``
+and the solve itself) is plain C++ once ``__device__`` and
+``__forceinline__`` are defined away.  This test cuts that part out, puts a
+robot's generated ``optik_chain.h`` beside it, builds it with ``g++``
+without multiply-add contraction, and holds ``residual_and_jtask`` (FK with
+the chain's static terms folded at compile time, the SE(3) log, the task
+Jacobian, the weights) against ``soa.residual_and_jtask`` in kernel math
+mode on the same float32 inputs: every value bit for bit, a chain with
+prismatic joints and skew axes included.  It skips where there is no
+``g++``.
+
+One allowance: torch's CPU ``sqrt`` is not correctly rounded for every
+float32 (about 0.6% of values differ from IEEE in the last bit), while C's
+``sqrtf`` and the card's are; the comparison gives the plain version numpy's
+``sqrt``.
+"""
+
+import pathlib
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from optik_tpu_torch import SolverConfig
+from optik_tpu_torch.models import ChainSpec, asset_path
+from optik_tpu_torch.ops import soa
+from optik_tpu_torch.ops.cuda import lm_kernel
+
+N = 1024
+WEIGHTS = dict(linear_weight=(0.0, 1.0, 1.0), angular_weight=(0.5, 1.0, 2.0))
+
+# Skew axes, general joint frames, two prismatic joints, no tip.
+ODD_URDF = """<robot name="odd">
+<link name="b"/><link name="l1"/><link name="l2"/><link name="l3"/>
+<link name="l4"/><link name="ee"/>
+<joint name="j1" type="revolute"><parent link="b"/><child link="l1"/>
+<origin xyz="0.1 0.2 0.3" rpy="0.3 -0.7 1.1"/><axis xyz="0.6 0 0.8"/>
+<limit lower="-2" upper="2"/></joint>
+<joint name="j2" type="prismatic"><parent link="l1"/><child link="l2"/>
+<origin xyz="0 0 0.2" rpy="0 1.5707963267948966 0"/><axis xyz="0 0 1"/>
+<limit lower="-0.3" upper="0.4"/></joint>
+<joint name="j3" type="revolute"><parent link="l2"/><child link="l3"/>
+<origin xyz="0.05 -0.1 0" rpy="1.2 0.4 -0.9"/><axis xyz="0 1 0"/>
+<limit lower="-3" upper="3"/></joint>
+<joint name="j4" type="prismatic"><parent link="l3"/><child link="l4"/>
+<origin xyz="0 0.3 0" rpy="0.2 0.1 0.5"/><axis xyz="0.36 0.48 0.8"/>
+<limit lower="-0.2" upper="0.2"/></joint>
+<joint name="j5" type="revolute"><parent link="l4"/><child link="ee"/>
+<origin xyz="0 0 0.1" rpy="0 0 0"/><axis xyz="1 0 0"/>
+<limit lower="-3" upper="3"/></joint>
+</robot>"""
+
+SHIM = """
+#include <math.h>
+#include <stdint.h>
+#include <stdio.h>
+#define __host__
+#define __device__
+#define __forceinline__ inline __attribute__((always_inline))
+static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+#include "optik_chain.h"
+#define OPTIK_QUALITY 0
+#define OPTIK_WEIGHTED %d
+#define OPTIK_WIDE 0
+"""
+
+# Reads n, the weights and n x (q, target rotation, target translation);
+# writes n x (e[6], jt[6][A], f).
+MAIN = """
+int main(int argc, char** argv) {
+  FILE* fi = fopen(argv[1], "rb");
+  FILE* fo = fopen(argv[2], "wb");
+  int n;
+  float chain[kRuntimeFloats], wl[3], wa[3];
+  if (fread(&n, 4, 1, fi) != 1) return 1;
+  if (fread(chain, 4, kRuntimeFloats, fi) != kRuntimeFloats) return 1;
+  if (fread(wl, 4, 3, fi) != 3 || fread(wa, 4, 3, fi) != 3) return 1;
+  Runtime rt;
+  for (int i = 0; i < 9; ++i) rt.tip_r[i] = chain[i];
+  for (int i = 0; i < 3; ++i) rt.tip_t[i] = chain[9 + i];
+  for (int k = 0; k < n; ++k) {
+    float q[kDof], tr[9], tt[3], e[6], jt[6][kDof], f, ml[9], ma[9];
+    if (fread(q, 4, kDof, fi) != kDof || fread(tr, 4, 9, fi) != 9
+        || fread(tt, 4, 3, fi) != 3) return 1;
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) {
+        ml[3 * i + j] = ((tr[i] * wl[0]) * tr[j] + (tr[3 + i] * wl[1]) * tr[3 + j])
+                        + (tr[6 + i] * wl[2]) * tr[6 + j];
+        ma[3 * i + j] = ((tr[i] * wa[0]) * tr[j] + (tr[3 + i] * wa[1]) * tr[3 + j])
+                        + (tr[6 + i] * wa[2]) * tr[6 + j];
+      }
+    residual_and_jtask<kDof, kWeighted>(rt, q, tr, tt, ml, ma, kWeighted, kWeighted,
+                                        e, jt, f);
+    fwrite(e, 4, 6, fo);
+    fwrite(jt, 4, 6 * kDof, fo);
+    fwrite(&f, 4, 1, fo);
+  }
+  fclose(fo);
+  return 0;
+}
+"""
+
+
+def _spec(name):
+    if name == "odd":
+        return ChainSpec.from_urdf_str(ODD_URDF, "b", "ee")
+    urdf, base, ee = {"panda": ("panda.urdf", "panda_link0",
+                                "panda_hand_tcp"),
+                      "ur5": ("ur5.urdf", "base_link", "ee_link")}[name]
+    return ChainSpec.from_urdf_file(asset_path(urdf), base, ee)
+
+
+def _host_binary(plan, weighted, tmp_path) -> pathlib.Path:
+    """The kernel's math for ``plan``'s chain as a host program."""
+    src = lm_kernel.SOURCE.read_text()
+    body = src[src.index("namespace {"):src.index("// --- the solve")]
+    # g++ spells the unroll request differently; the result is the same.
+    body = body.replace("#pragma unroll", "#pragma GCC unroll 16")
+    (tmp_path / lm_kernel.CHAIN_HEADER).write_text(plan.header)
+    (tmp_path / "math.cpp").write_text(
+        SHIM % int(weighted) + body + "}  // namespace\n" + MAIN)
+    exe = tmp_path / "math"
+    subprocess.run(["g++", "-O1", "-std=c++17", "-ffp-contract=off", "-o",
+                    str(exe), str(tmp_path / "math.cpp")], check=True,
+                   capture_output=True)
+    return exe
+
+
+@pytest.mark.parametrize("robot,weighted", [
+    ("panda", False), ("panda", True), ("ur5", False), ("odd", False)])
+def test_kernel_math_on_the_host_is_bitwise_plain(robot, weighted, tmp_path,
+                                                  monkeypatch):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the kernel's math for the host")
+    monkeypatch.setattr(
+        torch, "sqrt", lambda t: torch.from_numpy(np.sqrt(t.numpy())))
+    spec = _spec(robot)
+    cfg = SolverConfig(**WEIGHTS) if weighted else SolverConfig()
+    plan = lm_kernel.KernelPlan(spec, cfg)
+    a = plan.a
+    exe = _host_binary(plan, weighted, tmp_path)
+
+    rng = np.random.default_rng(0)
+    lo, hi = np.asarray(spec.lower), np.asarray(spec.upper)
+    q = rng.uniform(lo, hi, size=(N, a)).astype(np.float32)
+    qt = rng.uniform(lo, hi, size=(N, a)).astype(np.float32)
+    # Near and at the target: the small-angle series of the log and of the
+    # SE(3) coefficients.
+    q[:64] = qt[:64] + rng.uniform(-1e-4, 1e-4, size=(64, a)).astype(
+        np.float32)
+    q[64:72] = qt[64:72]
+
+    def full(v):
+        return torch.broadcast_to(torch.as_tensor(v, dtype=torch.float32),
+                                  (N,))
+
+    _, r_t, t_t = soa.fk_joints(
+        plan.consts, [torch.tensor(qt[:, j]) for j in range(a)], approx=True)
+    tr = torch.stack([full(r_t[i][j]) for i in range(3) for j in range(3)],
+                     dim=1).numpy()
+    tt = torch.stack([full(t_t[i]) for i in range(3)], dim=1).numpy()
+    with open(tmp_path / "in.bin", "wb") as f:
+        f.write(np.int32(N).tobytes())
+        f.write(plan.chain.tobytes())
+        f.write(np.asarray(cfg.linear_weight, np.float32).tobytes())
+        f.write(np.asarray(cfg.angular_weight, np.float32).tobytes())
+        f.write(np.concatenate([q, tr, tt], axis=1).astype(
+            np.float32).tobytes())
+    subprocess.run([str(exe), str(tmp_path / "in.bin"),
+                    str(tmp_path / "out.bin")], check=True)
+    got = np.fromfile(tmp_path / "out.bin", np.float32).reshape(
+        N, 6 + 6 * a + 1)
+
+    tgtm = [[torch.tensor(tr[:, 3 * i + j]) for j in range(3)]
+            for i in range(3)]
+    tgtt = [torch.tensor(tt[:, i]) for i in range(3)]
+    e, jt = soa.residual_and_jtask(
+        plan.consts, [torch.tensor(q[:, j]) for j in range(a)], tgtm, tgtt,
+        weight6=soa.weight6_from_config(tgtm, cfg.linear_weight,
+                                        cfg.angular_weight), approx=True)
+    want = torch.stack([full(v) for v in e]
+                       + [full(v) for row in jt for v in row]
+                       + [full(soa.vec_dot(e, e))], dim=1).numpy()
+    assert np.isfinite(want).all()
+    same = got.view(np.int32) == want.view(np.int32)
+    assert same.all(), (f"{(~same).any(axis=1).sum()} of {N} points differ, "
+                        f"largest |d| {np.abs(got - want).max()}")

@@ -303,23 +303,190 @@ def test_fp32_operation_count_formula(panda):
 
 
 def test_pack_chain_layout(panda):
+    """The kernel's run-time chain array holds the tip and the limits; the
+    joints' constants are compile-time (the header tests below)."""
     _, spec = panda
     from optik_tpu_torch.ops import soa
 
     consts = soa.chain_constants(spec)
     lower, upper = ik.chain_bounds(spec)
     chain = lm_kernel.pack_chain(consts, lower, upper)
-    assert chain.dtype == np.float32 and chain.size == 7 * 54 + 13
-    # Rodrigues coefficient form reproduces soa.rodrigues for every joint.
-    q = torch.tensor([0.3, -1.2, 2.5], dtype=torch.float64)
-    s, c = torch.sin(q), torch.cos(q)
-    for j, axis in enumerate(consts[2]):
-        c0, cc, cs, c1 = lm_kernel._rodrigues_coeffs(axis)
-        rod = soa.rodrigues(axis, q)
-        for a in range(3):
-            for b in range(3):
-                want = torch.broadcast_to(torch.as_tensor(rod[a][b],
-                                                          dtype=q.dtype), (3,))
-                got = c0[a, b] + c * cc[a, b] + s * cs[a, b] + \
-                    (1 - c) * c1[a, b]
-                torch.testing.assert_close(got, want, rtol=0, atol=1e-15)
+    assert chain.dtype == np.float32 and chain.size == 13 + 2 * 7
+    np.testing.assert_array_equal(chain[:9].reshape(3, 3),
+                                  np.float32(consts[4]))
+    np.testing.assert_array_equal(chain[9:12], np.float32(consts[5]))
+    assert chain[12] == 1.0 and consts[6]       # the Panda's hand is a tip
+    np.testing.assert_array_equal(chain[13:20], np.float32(lower))
+    np.testing.assert_array_equal(chain[20:27], np.float32(upper))
+    # An ee_offset folds into the tip: it changes this array, not the header.
+    ee = (np.eye(3), np.array([0.0, 0.0, 0.1]))
+    moved = lm_kernel.KernelPlan(spec, SolverConfig(), ee)
+    assert moved.chain[11] == np.float32(consts[5][2] + 0.1)
+    assert moved.header == lm_kernel.chain_header(consts)
+
+
+# --- the chain header: the robot's constants, compile-time for the kernel ---
+
+
+def _specs():
+    out = {}
+    for name, urdf, base, ee in (
+            ("panda", "panda.urdf", "panda_link0", "panda_hand_tcp"),
+            ("ur5", "ur5.urdf", "base_link", "ee_link")):
+        out[name] = ChainSpec.from_urdf_file(asset_path(urdf), base, ee)
+    return out
+
+
+def _parse_header(text):
+    """(dof, has_tip, {table: rows of Python floats}, prismatic flags,
+    per-joint (zeros, ones, minus ones) from the comments)."""
+    import re
+
+    dof = int(re.search(r"kDof = (\d+);", text).group(1))
+    has_tip = re.search(r"kHasTip = (true|false);", text).group(1) == "true"
+    tables = {}
+    for name in ("org_r", "org_t", "axis"):
+        body = re.search(rf"double {name}\(int j, int i\) {{\s*constexpr "
+                         rf"double v\[kDof\]\[\d\] = {{(.*?)}};", text,
+                         re.S).group(1)
+        tables[name] = [[float.fromhex(v) for v in row.split(",")]
+                        for row in re.findall(r"{([^{}]*)}", body)]
+    pris = re.search(r"bool v\[kDof\] = {([^}]*)}", text).group(1)
+    pris = [v.strip() == "true" for v in pris.split(",")]
+    marks = [tuple(int(v) for v in m) for m in re.findall(
+        r"// joint \d+: static 0 / \+1 / -1 constants: (\d+) / (\d+) / "
+        r"(\d+) of 15", text)]
+    return dof, has_tip, tables, pris, marks
+
+
+class _Lane:
+    """A stand-in for a lane tensor that records how soa.smul folds it."""
+
+    def __mul__(self, other):
+        return ("mul", other)
+
+    __rmul__ = __mul__
+
+    def __neg__(self):
+        return "neg"
+
+
+@pytest.mark.parametrize("robot", ["panda", "ur5"])
+def test_chain_header_round_trips_and_marks_the_folded_terms(robot):
+    from optik_tpu_torch.ops import soa
+
+    spec = _specs()[robot]
+    consts = soa.chain_constants(spec)
+    text = lm_kernel.chain_header(consts)
+    dof, has_tip, tables, pris, marks = _parse_header(text)
+    assert dof == spec.num_positions and has_tip == consts[6]
+    assert pris == list(consts[3]) and len(marks) == dof
+    # Every constant parses back to the plain version's Python float, bit
+    # for bit, hence to the chain's float32 constant when a lane meets it.
+    flat_r = [[v for row in consts[0][j] for v in row] for j in range(dof)]
+    assert tables["org_r"] == flat_r
+    assert tables["org_t"] == [list(v) for v in consts[1]]
+    assert tables["axis"] == [list(v) for v in consts[2]]
+    np.testing.assert_array_equal(
+        np.float32(tables["org_r"]).reshape(dof, 3, 3),
+        np.float32(spec.origin_r))
+    # The constants the header marks static 0 / +1 / -1 are the ones
+    # soa.smul folds: a dropped product, a copy, a negation.
+    lane = _Lane()
+    for j in range(dof):
+        folded = [0, 0, 0]
+        for v in flat_r[j] + tables["org_t"][j] + tables["axis"][j]:
+            assert soa._static(v)
+            out = soa.smul(lane, v)
+            if isinstance(out, float) and out == 0.0:
+                folded[0] += 1
+            elif out is lane:
+                folded[1] += 1
+            elif out == "neg":
+                folded[2] += 1
+            else:
+                assert out == ("mul", v)
+        assert tuple(folded) == marks[j], (j, folded, marks[j])
+        assert sum(folded) >= 9      # most of a joint's 15 constants fold
+
+
+def test_build_key_follows_the_chain_not_the_tip_or_the_config():
+    from optik_tpu_torch.ops.cuda import build
+
+    specs = _specs()
+    base = lm_kernel.KernelPlan(specs["panda"], SolverConfig())
+    ee = (np.eye(3), np.array([0.01, 0.0, 0.1]))
+    moved = lm_kernel.KernelPlan(specs["panda"], SolverConfig(), ee)
+    other_cfg = lm_kernel.KernelPlan(specs["panda"], SolverConfig(
+        max_restarts=24, seed_batch=4, max_iters=9, tol_f=1e-8))
+    ur5 = lm_kernel.KernelPlan(specs["ur5"], SolverConfig())
+
+    def key(plan, flags=("-DOPTIK_QUALITY=0",)):
+        return build.build_key(lm_kernel.SOURCE, build.NVCC_FLAGS + flags,
+                               {lm_kernel.CHAIN_HEADER: plan.header})
+
+    # One robot: an ee_offset (folded into the run-time tip) and another
+    # config reuse the library; another robot builds its own, and so does
+    # another flag set (mode, weights, the two-warp exchange, contraction).
+    assert key(moved) == key(base) == key(other_cfg)
+    assert not np.array_equal(moved.chain, base.chain)
+    assert key(ur5) != key(base)
+    assert key(base, ("-DOPTIK_QUALITY=1",)) != key(base)
+    assert key(base, ("-DOPTIK_QUALITY=0", "--fmad=false")) != key(base)
+
+
+# --- what the pose work queue relies on -------------------------------------
+
+
+POSE_CASES = {
+    "speed_reseed_8": (SolverConfig(max_restarts=24, seed_batch=8,
+                                    max_iters=12, tol_f=1e-6), {}),
+    "speed_reseed_3": (SolverConfig(max_restarts=12, seed_batch=3,
+                                    max_iters=12, tol_f=1e-6), {}),
+    "quality_cap_8": (SolverConfig.create(
+        "quality", max_restarts=16, seed_batch=8, max_iters=12, tol_f=1e-6,
+        quality_max_successes=2), {}),
+    "restart_offset_3": (SolverConfig(max_restarts=12, seed_batch=3,
+                                      max_iters=12, tol_f=1e-6),
+                         {"restart_offset": 64}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(POSE_CASES))
+def test_plain_solve_is_pose_independent(panda, case):
+    """A pose's lanes depend on no other pose: solving B poses together
+    equals, bit for bit and lane by lane, solving each alone.  The kernel's
+    work queue hands poses to thread groups in any packing on this ground."""
+    jr, spec = panda
+    cfg, kw = POSE_CASES[case]
+    n = 6
+    tr, tt, x0 = (torch.tensor(v[:n]) for v in _problem(jr, 4, np.float32))
+    plan = lm_kernel.KernelPlan(spec, cfg)
+    together = lm_kernel.solve_plain(plan, tr, tt, x0, track_active=True,
+                                     **kw)
+    assert bool(together.success.any())
+    for b in range(n):
+        alone = lm_kernel.solve_plain(plan, tr[b:b + 1], tt[b:b + 1],
+                                      x0[b:b + 1], track_active=True, **kw)
+        for name in ("x", "f", "success", "restart_index", "succ_iters",
+                     "active_iters"):
+            assert torch.equal(getattr(alone, name)[0],
+                               getattr(together, name)[b]), (name, b)
+
+
+def test_pose_lane_iters_lies_between_needed_and_lockstep(panda):
+    """The kernel's ``lane_iters`` (a pose's group runs until its last lane
+    stops) from the plain loop's probe: at least what the lanes need, at
+    most the lockstep loop's count, and additive over poses."""
+    jr, spec = panda
+    tr, tt, x0 = (torch.tensor(v) for v in _problem(jr, 2, np.float32))
+    plan = lm_kernel.KernelPlan(spec, SolverConfig(
+        max_restarts=24, seed_batch=8, max_iters=32))
+    probe = lm_kernel.solve_plain(plan, tr, tt, x0, track_active=True)
+    posewise = int(lm_kernel.pose_lane_iters(probe.active_iters))
+    assert int(probe.active_iters.sum()) <= posewise <= int(probe.lane_iters)
+    assert posewise < int(probe.lane_iters)     # Speed poses stop early
+    assert posewise % 8 == 0
+    parts = sum(int(lm_kernel.pose_lane_iters(probe.active_iters[b:b + 1]))
+                for b in range(B))
+    assert parts == posewise
