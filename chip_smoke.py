@@ -51,8 +51,37 @@ Phases (each prints a line; any failed check exits non-zero):
      computes also against that call, both sides prepared alike and timed
      in turns, and each side's device time alone from the profiler) and the
      exp_bisect variants against their plain versions;
- 11. a torch.profiler split of device time on the Speed and Quality paths.
-Then one JSON line with every kernel and, last, the result line.  Without a
+ 11. a torch.profiler split of device time on the Speed and Quality paths;
+ 12. Jacobians: Robot.jacobian_batch (SoA path) at B=131,072 on the Panda in
+     f32 against the array path (ops/kinematics.joint_jacobian) there and
+     against the same call in f64 on the host CPU for the first 4,096
+     configurations (both within 1e-5), and the scalar joint_jacobian
+     against row 0;
+ 13. the diff-IK main path at full width, Robot.diff_ik_batch(x0, V_WE,
+     v_max, rescue=False) on the Panda in f32 at B=4,096 and B=131,072
+     (plain eager tensor operations: no kernel of the JAX package lies on
+     this path, so none of ours does), with a constant command (V_WE =
+     [0, 0, 0.1, 0, 0, 0], v_max = 0.75) and with random commands: f32
+     outputs on the card, 0 <= alpha <= 1 + 1e-6, |v| <= v_max + 1e-6, every
+     ok lane tracks |J_W v - alpha V|_inf <= 1.1e-5 (1 + |V|_inf) with J_W
+     recomputed in f64 (the solver's own gate is 1e-5 on its f32 Jacobian;
+     the f64 recomputation moves a residual by the Jacobian's rounding), ok
+     rate >= 0.99, ok masks within 0.1% and alpha within 2e-4 of the port's
+     own f64 run on the host CPU over the first 4,096 lanes (a comparison,
+     never a substitute), repeat and first-1,024-alone bitwise equal, B=1
+     through Robot.diff_ik equal to lane 0, no kernel whose name contains
+     "double"; steps/s, device time, launches per call, device-busy share
+     and peak memory;
+ 14. rescue and the ADMM path: rescue=True on the same batches at both
+     sizes (ok lanes bitwise kept, ok rate not lower, the failed lanes
+     re-solved at their true count), a planar 6-joint chain at B=64
+     (rescue=False rejects lanes, rescue=True accepts all with alpha >=
+     1 - 1e-3 and tracking within 5e-4), a 4-joint chain through
+     diff_ik_admm_batch (bounds and tracking), and an exact tie in the
+     gauge's argmin (the first minimal facet wins on the card as on the
+     CPU).
+Then one JSON line with the diff-IK paths, one with every kernel and, last,
+the result line.  Without a
 card, or run from a directory that holds no checkout, it exits 2 and prints
 no result.
 """
@@ -70,6 +99,12 @@ B_CHECK = 4096
 B_MAIN = 131072
 B_QUALITY = 4096
 B_OPT = 512
+B_DIFFIK = (4096, 131072)
+B_ADMM = 64
+JAC_TOL = 1e-5         # f32 Jacobian entries against f64 (|J| is O(1))
+TRACK_TOL = 1.1e-5     # the solver's gate, 1e-5, plus the f32 Jacobian's rounding
+BOUND_EPS = 1e-6
+ALPHA_TOL = 2e-4       # f32 against f64 alpha (tests/test_gauge.py, against the LP)
 MAIN = dict(max_restarts=64, seed_batch=8, max_iters=32, tol_f=1e-6)
 QUALITY = dict(max_restarts=256, seed_batch=64, max_iters=48)
 FK_TOL = 2e-3         # cost <= 1e-6 is a pose residual of ~1e-3
@@ -156,8 +191,9 @@ def timed(fn, reps):
 
 def profile_split(fn, reps):
     """Device time by kernel name over ``reps`` warm calls of fn():
-    {"kernels": {name: ms}, "window_ms": host ms of the profiled window},
-    or None when the profiler recorded no device time."""
+    {"kernels": {name: ms}, "launches": device events counted,
+    "window_ms": host ms of the profiled window}, or None when the
+    profiler recorded no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -170,7 +206,7 @@ def profile_split(fn, reps):
             fn()
         torch.cuda.synchronize()
         window_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = {}
+    kernels, launches = {}, 0
     for ev in prof.key_averages():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             us = getattr(ev, "self_device_time_total", None)
@@ -178,9 +214,10 @@ def profile_split(fn, reps):
                 us = ev.self_cuda_time_total
             if us > 0:
                 kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
+                launches += ev.count
     if not kernels:
         return None
-    return {"kernels": kernels, "window_ms": window_ms}
+    return {"kernels": kernels, "launches": launches, "window_ms": window_ms}
 
 
 def lanes_equal(k, p, what):
@@ -268,6 +305,360 @@ def bound(ops, nbytes):
     t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def planar_urdf(n=6):
+    """n revolute joints, all about z: the world Jacobian has rank <= 3
+    everywhere, which the facet enumeration cannot certify."""
+    links = "".join(f'<link name="l{i}"/>' for i in range(n + 1))
+    joints = "".join(
+        f'<joint name="j{i}" type="revolute">'
+        f'<parent link="l{i - 1}"/><child link="l{i}"/>'
+        f'<origin xyz="0.2 0 0" rpy="0 0 0"/><axis xyz="0 0 1"/>'
+        f'<limit lower="-3" upper="3" effort="1" velocity="1"/>'
+        f"</joint>" for i in range(1, n + 1))
+    return f'<robot name="planar{n}">{links}{joints}</robot>'
+
+
+def chain_urdf(n):
+    """Synthetic n-joint serial arm (alternating z / y axes)."""
+    links = "".join(f'<link name="l{i}"/>' for i in range(n + 1))
+    joints = "".join(
+        f'<joint name="j{i}" type="revolute">'
+        f'<parent link="l{i}"/><child link="l{i + 1}"/>'
+        f'<origin xyz="0.2 0 0.1" rpy="0 0 0"/>'
+        f'<axis xyz="{"0 0 1" if i % 2 == 0 else "0 1 0"}"/>'
+        f'<limit lower="-2.5" upper="2.5" effort="1" velocity="1"/>'
+        f"</joint>" for i in range(n))
+    return f'<robot name="syn{n}">{links}{joints}</robot>'
+
+
+def world_jacobian(robot, x):
+    """J_W = blockdiag(R_WE) J_local of every configuration, in the
+    robot's dtype on its device: (B, 6, A)."""
+    import torch
+
+    r, _ = robot.fk_batch(x)
+    j = robot.jacobian_batch(x)
+    return torch.cat([r @ j[:, :3], r @ j[:, 3:]], dim=1)
+
+
+def track_residual(jw, alpha, v, v_we):
+    """|J_W v - alpha V|_inf / (1 + |V|_inf) per lane, in jw's dtype."""
+    v_we = v_we.to(jw.dtype)
+    res = (jw @ v.to(jw.dtype)[:, :, None])[:, :, 0] \
+        - alpha.to(jw.dtype)[:, None] * v_we
+    return res.abs().amax(dim=1) / (1.0 + v_we.abs().amax(dim=1))
+
+
+def check_diffik_contracts(out, v_we, v_max, jw, what, track_tol=TRACK_TOL):
+    """The bound and tracking contracts of one diff-IK result; returns
+    (ok rate, largest tracking residual over the ok lanes)."""
+    import torch
+
+    alpha, v, ok = out
+    b, n = v_max.shape
+    check(alpha.shape == (b,) and v.shape == (b, n) and ok.shape == (b,),
+          f"{what}: output shapes {tuple(alpha.shape)}, {tuple(v.shape)}, "
+          f"{tuple(ok.shape)}")
+    check(alpha.dtype == torch.float32 and v.dtype == torch.float32
+          and ok.dtype == torch.bool and alpha.is_cuda and v.is_cuda
+          and ok.is_cuda, f"{what}: outputs are not f32 / bool on the card")
+    check(bool(torch.isfinite(alpha).all()) and bool(torch.isfinite(v).all()),
+          f"{what}: alpha or v not finite")
+    check(float(alpha.min()) >= 0.0 and float(alpha.max()) <= 1 + BOUND_EPS,
+          f"{what}: alpha outside [0, 1] ({float(alpha.min())}, "
+          f"{float(alpha.max())})")
+    over = float((v.abs() - v_max).max())
+    check(over <= BOUND_EPS, f"{what}: |v| exceeds v_max by {over}")
+    check(bool(ok.any()), f"{what}: no lane is ok")
+    res = float(track_residual(jw, alpha, v, v_we)[ok].max())
+    check(res <= track_tol, f"{what}: an ok lane misses J_W v = alpha V by "
+          f"{res} (1 + |V|), limit {track_tol}")
+    return float(ok.float().mean()), res
+
+
+def diffik_phases(robot, Robot, event_ms):
+    """Phases 12-14; returns the entries of the ``paths`` line."""
+    import numpy as np
+    import torch
+
+    from optik_tpu_torch.ops import kinematics
+    from optik_tpu_torch.solver import diffik, gauge
+
+    panda = robot.spec
+    cpu64 = Robot(panda, dtype=torch.float64, device="cpu")
+    gpu64 = Robot(panda, dtype=torch.float64, device="cuda")
+    b_small, b_big = B_DIFFIK
+    h = 1024
+    rng = np.random.default_rng(4)
+    lo, hi = robot.joint_limits()
+    x0 = torch.tensor(rng.uniform(lo, hi, size=(b_big, 7)),
+                      dtype=torch.float32, device="cuda")
+    paths = []
+
+    # 12. Jacobians: SoA against the array path and against f64 on the host.
+    jac = robot.jacobian_batch(x0)
+    check(jac.shape == (b_big, 6, 7) and jac.dtype == torch.float32
+          and jac.is_cuda and bool(torch.isfinite(jac).all()),
+          "jacobian_batch: not a finite f32 (B, 6, 7) tensor on the card")
+    jac_arr = kinematics.joint_jacobian(robot.params, x0)
+    d_arr = float((jac - jac_arr).abs().max())
+    jac_ref = cpu64.jacobian_batch(x0[:b_small].double().cpu())
+    d_ref = float((jac[:b_small].double().cpu() - jac_ref).abs().max())
+    row0 = robot.joint_jacobian(x0[0].double().cpu().numpy())
+    d_row = float(np.abs(row0 - jac[0].cpu().numpy()).max())
+    check(row0.shape == (6, 7) and max(d_arr, d_ref, d_row) <= JAC_TOL,
+          f"Jacobians differ: SoA against the array path {d_arr}, against "
+          f"f64 on the host {d_ref}, scalar against row 0 {d_row} (limit "
+          f"{JAC_TOL})")
+    jac_s = timed(lambda: robot.jacobian_batch(x0), 5)
+    jac_ms = event_ms(lambda: robot.jacobian_batch(x0), 5)
+    jac_prof = profile_split(lambda: robot.jacobian_batch(x0), 1)
+    jac_launches = None if jac_prof is None else jac_prof["launches"]
+    print(f"Jacobians @B={b_big}: jacobian_batch (SoA) against the array "
+          f"path |d| {d_arr:.3g}, against f64 on the host CPU (first "
+          f"{b_small}) {d_ref:.3g}, scalar joint_jacobian against row 0 "
+          f"{d_row:.3g} (limit {JAC_TOL}); {b_big / jac_s:.0f} Jacobians/s "
+          f"(median of 5, {jac_s * 1e3:.2f} ms/call), {jac_ms:.2f} ms by "
+          f"CUDA events, launches per call "
+          + ("not measured" if jac_launches is None else f"{jac_launches}"),
+          flush=True)
+    paths.append({"name": "jacobian_batch", "B": b_big, "per_s": b_big / jac_s,
+                  "ms": jac_s * 1e3, "event_ms": jac_ms,
+                  "launches_per_call": jac_launches,
+                  "max_abs_err_vs_f64": d_ref})
+    del jac, jac_arr
+
+    # 13. The diff-IK main path.  The small batch is the first lanes of the
+    # large one, so every batch-invariance check compares lanes bitwise.
+    jw64 = world_jacobian(gpu64, x0.double())
+    commands = {
+        "constant": (
+            torch.tensor([0.0, 0.0, 0.1, 0.0, 0.0, 0.0], dtype=torch.float32,
+                         device="cuda").repeat(b_big, 1),
+            torch.full((b_big, 7), 0.75, dtype=torch.float32, device="cuda")),
+        "random": (
+            torch.tensor(rng.standard_normal((b_big, 6)), dtype=torch.float32,
+                         device="cuda"),
+            torch.tensor(rng.uniform(0.3, 1.2, size=(b_big, 7)),
+                         dtype=torch.float32, device="cuda")),
+    }
+    gauge_out = {}
+    for name, (v_we, v_max) in commands.items():
+        ref = cpu64.diff_ik_batch(
+            x0[:b_small].double().cpu(), v_we[:b_small].double().cpu(),
+            v_max[:b_small].double().cpu(), rescue=False)
+        outs = {}
+        for b in (b_big, b_small):
+            args = (x0[:b], v_we[:b], v_max[:b])
+
+            def step():
+                return robot.diff_ik_batch(*args, rescue=False)
+
+            what = f"diff-IK {name} @B={b}"
+            step()  # warm: subset tables, allocator
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_mb = torch.cuda.memory_allocated() / 2**20
+            out = step()
+            torch.cuda.synchronize()
+            peak_mb = torch.cuda.max_memory_allocated() / 2**20
+            rate, res = check_diffik_contracts(out, v_we[:b], v_max[:b],
+                                               jw64[:b], what)
+            check(rate >= 0.99, f"{what}: ok rate {rate} < 0.99")
+            again = step()
+            check(all(torch.equal(a, c) for a, c in zip(out, again)),
+                  f"{what}: a repeat call is not bitwise equal")
+            outs[b] = out
+            # Against the port's own f64 run on the host CPU (first lanes).
+            a32, ok32 = out[0][:b_small].cpu(), out[2][:b_small].cpu()
+            n_diff = int((ok32 != ref[2]).sum())
+            check(n_diff <= max(1, MASK_DIFF_FRAC * b_small),
+                  f"{what}: ok masks differ from f64 on {n_diff} of "
+                  f"{b_small} lanes")
+            both = ok32 & ref[2]
+            d_alpha = float((a32.double() - ref[0])[both].abs().max())
+            check(d_alpha <= ALPHA_TOL, f"{what}: alpha differs from f64 by "
+                  f"{d_alpha} (limit {ALPHA_TOL})")
+            step_s = timed(step, 5)
+            dev_ms = event_ms(step, 3)
+            prof = profile_split(step, 1)
+            if prof is None:
+                launches = busy = prof_ms = None
+                prof_text = "the profiler saw no device time (launches and "\
+                    "device-busy share not measured)"
+            else:
+                doubles = sorted(k for k in prof["kernels"] if "double" in k)
+                check(not doubles, f"{what}: float64 kernels in an f32 "
+                      f"call: {doubles[:3]}")
+                launches = prof["launches"]
+                prof_ms = sum(prof["kernels"].values())
+                busy = prof_ms / (step_s * 1e3)
+                prof_text = (f"{launches} launches per call, "
+                             f"{prof_ms:.2f} ms of device time in them "
+                             f"(profiler) = device-busy share {busy:.3f} of "
+                             f"the unprofiled call, no float64 kernel")
+            print(f"{what}: ok rate {rate:.6f}, tracking residual of ok "
+                  f"lanes <= {res:.3g} (1 + |V|) in f64 (limit {TRACK_TOL}), "
+                  f"alpha in [{float(out[0].min()):.3g}, "
+                  f"{float(out[0].max()):.7g}]; against f64 on the host CPU "
+                  f"(comparison, first {b_small} lanes): masks differ on "
+                  f"{n_diff}, alpha |d| {d_alpha:.3g} (limit {ALPHA_TOL}); "
+                  f"repeat bitwise equal; {b / step_s:.0f} steps/s (median "
+                  f"of 5, {step_s * 1e3:.2f} ms/call), {dev_ms:.2f} ms from "
+                  f"first to last kernel (CUDA events); {prof_text}; peak "
+                  f"memory {peak_mb:.1f} MB ({base_mb:.1f} MB held before "
+                  f"the call)", flush=True)
+            paths.append({
+                "name": "diff_ik_batch", "commands": name, "B": b,
+                "steps_per_s": b / step_s, "ms": step_s * 1e3,
+                "event_ms": dev_ms, "launches_per_call": launches,
+                "profiler_device_ms": prof_ms, "device_busy_share": busy,
+                "peak_memory_mb": peak_mb, "held_before_mb": base_mb,
+                "ok_rate": rate, "track_residual": res,
+                "alpha_abs_err_vs_f64": d_alpha, "ok_mask_diff_vs_f64": n_diff})
+        big, small = outs[b_big], outs[b_small]
+        alone = robot.diff_ik_batch(x0[:h], v_we[:h], v_max[:h], rescue=False)
+        check(all(torch.equal(a[:b_small], c) for a, c in zip(big, small))
+              and all(torch.equal(a[:h], c) for a, c in zip(big, alone)),
+              f"diff-IK {name}: lanes depend on the batch they are solved in")
+        one = robot.diff_ik(x0[0].double().cpu().numpy(),
+                            v_we[0].double().cpu().numpy(),
+                            v_max[0].double().cpu().numpy())
+        # Lane 0 is ok for both command sets of this seed (diff_ik rescues
+        # by default, so a rejected lane would prove nothing here).
+        check(bool(big[2][0]) and one is not None
+              and one[0] == float(big[0][0])
+              and one[1] == big[1][0].double().cpu().tolist(),
+              f"diff-IK {name}: Robot.diff_ik differs from lane 0")
+        print(f"diff-IK {name}: the first {b_small} and the first {h} lanes "
+              f"solved alone are bitwise equal to those lanes of B={b_big}; "
+              f"Robot.diff_ik (B=1) equals lane 0", flush=True)
+        gauge_out[name] = outs
+
+    # 14a. Rescue on the same batches: lanes that were ok are kept bitwise,
+    # the failed ones are re-solved by the ADMM path at their true count.
+    for name, (v_we, v_max) in commands.items():
+        for b in (b_small, b_big):
+            args = (x0[:b], v_we[:b], v_max[:b])
+            a0, v0, ok0 = gauge_out[name][b]
+            t0 = time.perf_counter()
+            a1, v1, ok1 = robot.diff_ik_batch(*args, rescue=True)
+            torch.cuda.synchronize()
+            rescue_ms = 1e3 * (time.perf_counter() - t0)
+            check(bool(ok1[ok0].all()) and torch.equal(a1[ok0], a0[ok0])
+                  and torch.equal(v1[ok0], v0[ok0]),
+                  f"rescue {name} @B={b}: a lane that was ok changed")
+            rate, res = check_diffik_contracts(
+                (a1, v1, ok1), args[1], args[2], jw64[:b],
+                f"rescue {name} @B={b}")
+            n_bad = int((~ok0).sum())
+            print(f"rescue {name} @B={b}: {n_bad} lanes failed the gauge, "
+                  f"{int((~ok1).sum())} stay failed after the ADMM re-solve "
+                  f"(ok rate {float(ok0.float().mean()):.6f} -> {rate:.6f}), "
+                  f"ok lanes bitwise kept, tracking <= {res:.3g}; the call "
+                  f"took {rescue_ms:.1f} ms", flush=True)
+            paths.append({"name": "diff_ik_batch rescue", "commands": name,
+                          "B": b, "failed_lanes": n_bad, "ms": rescue_ms,
+                          "ok_rate": rate})
+    del jw64, gauge_out
+
+    # 14b. The planar chain: commands inside the reachable cone.
+    def cone_problem(urdf, n, seed):
+        bot = Robot.from_urdf_str(urdf, "l0", f"l{n}", device="cuda")
+        bot64 = Robot(bot.spec, dtype=torch.float64, device="cuda")
+        r = np.random.default_rng(seed)
+        q = torch.tensor(r.uniform(*bot.joint_limits(), size=(B_ADMM, n)),
+                         dtype=torch.float32, device="cuda")
+        jw = world_jacobian(bot64, q.double())
+        inside = torch.tensor(r.uniform(-0.2, 0.2, size=(B_ADMM, n, 1)),
+                              device="cuda")
+        v_cmd = (jw @ inside)[:, :, 0].float()
+        return bot, q, v_cmd, torch.ones_like(q), jw
+
+    bot, q, v_cmd, vm, jw = cone_problem(planar_urdf(), 6, seed=0)
+    _, _, ok0 = bot.diff_ik_batch(q, v_cmd, vm, rescue=False)
+    check(not bool(ok0.all()), "planar chain: the gauge certified a "
+          "rank-deficient Jacobian")
+    out = bot.diff_ik_batch(q, v_cmd, vm)
+    rate, res = check_diffik_contracts(out, v_cmd, vm, jw, "planar rescue",
+                                       track_tol=5e-4)
+    check(rate == 1.0 and float(out[0].min()) >= 1 - 1e-3,
+          f"planar rescue: ok rate {rate}, least alpha {float(out[0].min())}")
+    planar_s = timed(lambda: bot.diff_ik_batch(q, v_cmd, vm), 3)
+    print(f"planar 6-joint chain @B={B_ADMM}: rescue=False rejects "
+          f"{int((~ok0).sum())} lanes, rescue=True accepts all, alpha >= "
+          f"{float(out[0].min()):.6f}, tracking <= {res:.3g} (limit 5e-4); "
+          f"{planar_s * 1e3:.1f} ms per call (gauge, then ADMM on the "
+          f"rejected lanes; median of 3)", flush=True)
+
+    # 14c. Four joints route to the ADMM path.
+    bot4, q, v_cmd, vm, jw = cone_problem(chain_urdf(4), 4, seed=1)
+    check(bot4._diffik_solver() is None, "a 4-joint chain did not route to "
+          "the ADMM path")
+    out = bot4.diff_ik_batch(q, v_cmd, vm)
+    direct = diffik.diff_ik_admm_batch(bot4.params, q, v_cmd, vm)
+    check(all(torch.equal(a, c) for a, c in zip(out, direct)),
+          "the 4-joint facade result differs from diff_ik_admm_batch")
+    rate, res = check_diffik_contracts(out, v_cmd, vm, jw, "4-joint ADMM",
+                                       track_tol=2e-5)
+    check(rate >= 0.9, f"4-joint ADMM: ok rate {rate} on reachable commands")
+    admm_s = timed(lambda: diffik.diff_ik_admm_batch(bot4.params, q, v_cmd,
+                                                     vm), 3)
+    admm_prof = profile_split(
+        lambda: diffik.diff_ik_admm_batch(bot4.params, q, v_cmd, vm), 1)
+    admm_launches = None if admm_prof is None else admm_prof["launches"]
+    print(f"4-joint chain @B={B_ADMM} through diff_ik_admm_batch: ok rate "
+          f"{rate:.4f}, alpha >= {float(out[0][out[2]].min()):.6f}, tracking "
+          f"<= {res:.3g} (limit 2e-5); ADMM {admm_s * 1e3:.1f} ms per "
+          f"lane-batch (median of 3), launches per call "
+          + ("not measured" if admm_launches is None
+             else f"{admm_launches}"), flush=True)
+    paths.append({"name": "diff_ik_admm_batch", "B": B_ADMM, "joints": 4,
+                  "ms": admm_s * 1e3, "launches_per_call": admm_launches,
+                  "ok_rate": rate, "planar_rescue_ms": planar_s * 1e3})
+
+    # 14d. An exact tie: two identical generators give pairs of subsets with
+    # the same normal and the same cut.  The first minimal row must win on
+    # the card as it does on the CPU; t must not depend on the choice.  A
+    # subset holding both copies is degenerate (its "normal" is a rounding
+    # direction, a valid cut but no facet), so the comparison keeps the
+    # lanes whose boundary point is consistent on both devices.
+    tie = torch.tensor([[3.0, 1.0, 1.0, 2.0], [1.0, 1.0, 1.0, 2.0],
+                        [1.0, 5.0, 1.0, 2.0]], device="cuda")
+    check(torch.argmin(tie, dim=0).tolist() == [1, 0, 0, 0]
+          and torch.argmin(tie.cpu(), dim=0).tolist() == [1, 0, 0, 0],
+          "argmin does not return the first minimal row")
+    r = np.random.default_rng(2)
+    g = r.standard_normal((7, 6, 256)).astype(np.float32)
+    g[1] = g[0]
+    vdir = r.standard_normal((6, 256)).astype(np.float32)
+    tie_out = {}
+    for dev in ("cuda", "cpu"):
+        gens = [[torch.tensor(g[i, k], device=dev) for k in range(6)]
+                for i in range(7)]
+        vv = [torch.tensor(vdir[k], device=dev) for k in range(6)]
+        t, u = gauge.gauge_solve(gens, vv)
+        check(t.dtype == torch.float32 and bool(torch.isfinite(t).all()),
+              f"tie input on {dev}: t is not finite f32")
+        miss = torch.stack([sum(u[i] * gens[i][k] for i in range(7))
+                            - t * vv[k] for k in range(6)]).abs().amax(dim=0)
+        tie_out[dev] = (t.cpu(), torch.stack(u).cpu(), miss.cpu() <= 1e-3)
+    (t_g, u_g, good_g), (t_c, u_c, good_c) = tie_out["cuda"], tie_out["cpu"]
+    good = good_g & good_c
+    check(int(good.sum()) >= 32, f"tie input: only {int(good.sum())} lanes "
+          "have a consistent boundary point on both devices")
+    d_t = float(((t_g - t_c).abs() / t_c)[good].max())
+    d_u = float((u_g - u_c)[:, good].abs().max())
+    check(d_t <= 1e-4 and d_u <= 1e-3, f"tie input: the card differs from "
+          f"the CPU by {d_t} relative in t, {d_u} in u")
+    print(f"argmin tie (two identical generators, 256 lanes, "
+          f"{int(good.sum())} with a consistent boundary point on both "
+          f"devices): the first minimal row wins on the card and on the "
+          f"CPU; there t agrees within {d_t:.3g} relative (limit 1e-4) and "
+          f"u within {d_u:.3g} (limit 1e-3)", flush=True)
+    return paths
 
 
 def main() -> int:
@@ -750,8 +1141,12 @@ def main() -> int:
               + "; ".join(f"{n[:48]} {100 * t / total:.1f}%" for n, t in top),
               flush=True)
 
+    # 12-14. Jacobians and differential IK (plain eager tensor operations).
+    paths = diffik_phases(robot, Robot, event_ms)
+
     print(f"total wall time {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    print(json.dumps({"paths": paths}), flush=True)
     lm_src = "optik_tpu_torch/csrc/lm_kernel.cu"
     print(json.dumps({"kernels": [
         {"name": "lm_solve", "route": "cuda", "source": lm_src,

@@ -177,10 +177,10 @@ def vec_cross(u: Vec, v: Vec) -> Vec:
             ssub(smul(u[0], v[1]), smul(u[1], v[0]))]
 
 
-def cholesky_solve(a: Mat, b: Vec) -> Vec:
-    """Unrolled SPD solve on components; the factor keeps 1/L_jj on its
-    diagonal (one rsqrt per column, no divisions)."""
-    n = len(b)
+def cholesky_factor(a: Mat) -> Mat:
+    """Unrolled Cholesky factor of an SPD matrix on components; the factor
+    keeps 1/L_jj on its diagonal (one rsqrt per column, no divisions)."""
+    n = len(a)
     l = [[None] * n for _ in range(n)]
     for j in range(n):
         s = a[j][j]
@@ -193,6 +193,13 @@ def cholesky_solve(a: Mat, b: Vec) -> Vec:
             for k in range(j):
                 s = s - l[i][k] * l[j][k]
             l[i][j] = s * inv_d
+    return l
+
+
+def cholesky_apply(l: Mat, b: Vec) -> Vec:
+    """Solve (L L^T) x = b by both substitutions, ``l`` from
+    :func:`cholesky_factor`."""
+    n = len(b)
     y = [None] * n
     for i in range(n):
         s = b[i]
@@ -206,6 +213,11 @@ def cholesky_solve(a: Mat, b: Vec) -> Vec:
             s = s - l[k][i] * x[k]
         x[i] = s * l[i][i]
     return x
+
+
+def cholesky_solve(a: Mat, b: Vec) -> Vec:
+    """Unrolled SPD solve on components."""
+    return cholesky_apply(cholesky_factor(a), b)
 
 
 # --- SO(3) ------------------------------------------------------------------

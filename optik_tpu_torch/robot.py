@@ -5,8 +5,11 @@ it the port runs so far.
   * ``num_positions()``, ``joint_limits()``, ``set_parallelism(n)``
   * ``random_configuration()``
   * ``fk(x, ee_offset=None) -> 4x4`` and ``fk_batch``
+  * ``joint_jacobian(x, ee_offset=None) -> 6xN`` and ``jacobian_batch``
   * ``ik(config, target, x0, ee_offset=None) -> (list, cost) | None`` and
     ``ik_batch``
+  * ``diff_ik(x0, V_WE, v_max, ee_offset=None) -> (alpha, v) | None`` and
+    ``diff_ik_batch(..., rescue=True)``
 
 A ``Robot`` lives on one explicit ``device`` (default ``"cuda"``; on a
 machine without a card that default raises rather than switching to the
@@ -16,8 +19,12 @@ weights, any ``seed_batch`` up to 64 lanes per pose and unlimited restart
 rounds (``max_restarts=0``); on the CPU it runs the plain torch loop
 (``solver/ik.build_batch_solver``).  More than 64 seed lanes per pose
 raises ``NotImplementedError`` on CUDA; nothing falls back quietly.
-``joint_jacobian``, ``jacobian_batch``, the diff-IK entry points, overflow
-rescue, the cascade and sharding are not ported yet (ROADMAP Queue 1).
+The Jacobians and differential IK are plain eager tensor operations on the
+Robot's device (no kernel of the JAX package lies on that path): the exact
+zonotope-gauge solve for 5 to 10 joints (``solver/gauge.py``), the ADMM
+solve (``solver/qp.py``) otherwise and as the rescue of lanes the gauge
+cannot certify.  Overflow rescue, the cascade and sharding are not ported
+yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ import torch
 
 from .config import DEFAULT_RESTARTS, SolverConfig
 from .models.chain import ChainSpec
+from .ops import kinematics as K
 from .ops import soa
 from .ops.cuda import lm_kernel
+from .solver import diffik
 from .solver import ik as ik_mod
 from .utils.precision import use_full_f32_matmuls
 
@@ -70,6 +79,8 @@ class Robot:
         self._consts = soa.chain_constants(spec)
         self._rng = np.random.default_rng()
         self._solvers = {}
+        self._params = None
+        self._diffik_cache = None
         self._parallelism_noted = False
 
     # --- constructors -----------------------------------------------------
@@ -125,23 +136,38 @@ class Robot:
         r, t = _parse_pose(ee_offset)
         return self._tensor(r), self._tensor(t)
 
-    def fk_batch(self, x: ArrayLike, ee_offset: Optional[ArrayLike] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Batched EE poses: (..., A) -> ((..., 3, 3), (..., 3)) tensors."""
-        x = self._tensor(x)
+    @property
+    def params(self) -> K.ChainParams:
+        """The chain's constants as tensors on this Robot's device (the
+        array path: ``ops/kinematics.py``, the ADMM diff-IK solve)."""
+        if self._params is None:
+            self._params = K.ChainParams.from_spec(self.spec, self.dtype,
+                                                   self.device)
+        return self._params
+
+    def _fk_soa(self, x: torch.Tensor, ee_offset):
+        """SoA FK of ``x`` (..., A): (frames, r_ee, t_ee, full), ``full``
+        spreading a component (lane tensor or static float) over the
+        lanes."""
         ee_r, ee_t = self._ee_offset(ee_offset)
         eem = eev = None
         if ee_r is not None:
             eem = [[ee_r[i, j] for j in range(3)] for i in range(3)]
             eev = [ee_t[i] for i in range(3)]
         comps = [x[..., j] for j in range(self.num_positions())]
-        _, r_ee, t_ee = soa.fk_with_ee(self._consts, comps, eem, eev)
+        frames, r_ee, t_ee = soa.fk_with_ee(self._consts, comps, eem, eev)
         lane = x.shape[:-1]
 
         def full(v):
             return torch.broadcast_to(torch.as_tensor(
                 v, dtype=self.dtype, device=self.device), lane)
 
+        return frames, r_ee, t_ee, full
+
+    def fk_batch(self, x: ArrayLike, ee_offset: Optional[ArrayLike] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Batched EE poses: (..., A) -> ((..., 3, 3), (..., 3)) tensors."""
+        _, r_ee, t_ee, full = self._fk_soa(self._tensor(x), ee_offset)
         r = torch.stack([torch.stack([full(r_ee[i][j]) for j in range(3)],
                                      dim=-1) for i in range(3)], dim=-2)
         t = torch.stack([full(t_ee[i]) for i in range(3)], dim=-1)
@@ -156,6 +182,24 @@ class Robot:
         m[:3, :3] = r[0].double().cpu().numpy()
         m[:3, 3] = t[0].double().cpu().numpy()
         return m
+
+    def joint_jacobian(self, x: ArrayLike,
+                       ee_offset: Optional[ArrayLike] = None) -> np.ndarray:
+        """Local-frame geometric Jacobian (6, N) (optik-py/src/lib.rs:91-101),
+        on the array path (``ops/kinematics.py``)."""
+        x = self._check_q(x, "x")
+        ee_r, ee_t = self._ee_offset(ee_offset)
+        return K.joint_jacobian(self.params, self._tensor(x), ee_r,
+                                ee_t).cpu().numpy()
+
+    def jacobian_batch(self, x: ArrayLike,
+                       ee_offset: Optional[ArrayLike] = None) -> torch.Tensor:
+        """Batched local-frame Jacobians on the SoA path: (..., A) ->
+        (..., 6, A)."""
+        frames, r_ee, t_ee, full = self._fk_soa(self._tensor(x), ee_offset)
+        cols = soa.jacobian_cols(self._consts, frames, r_ee, t_ee)
+        return torch.stack([torch.stack([full(col[i]) for col in cols],
+                                        dim=-1) for i in range(6)], dim=-2)
 
     # --- inverse kinematics -----------------------------------------------
 
@@ -302,3 +346,96 @@ class Robot:
                 ee_t = self._tensor(ee_pair[1])
             res = fn(tgt_r, tgt_t, x0, ee_r, ee_t, restart_offset=off)
         return res._replace(sel_key=None)
+
+    # --- differential IK --------------------------------------------------
+
+    def _diffik_solver(self):
+        """Cached batched diff-IK step on the exact gauge path, or None
+        where the joint count routes to the ADMM path."""
+        if self._diffik_cache is None:
+            self._diffik_cache = (
+                diffik.build_batch_solver(self.spec, self.dtype),)
+        return self._diffik_cache[0]
+
+    def diff_ik(self, x0: ArrayLike, V_WE: ArrayLike, v_max: ArrayLike,
+                ee_offset: Optional[ArrayLike] = None
+                ) -> Optional[Tuple[float, List[float]]]:
+        """Velocity-limited diff-IK step (lib.rs:101-239).
+
+        Maximizes the scaling alpha in [0, 1] such that J_W(q) v = alpha*V_WE
+        with |v_i| <= v_max_i; returns (alpha, v) or None on solver failure.
+        Routes through the batched solver at B=1 (the gauge computation is
+        element-wise over lanes, so scalar and batch results are identical).
+        """
+        x0 = self._check_q(x0, "x0")
+        v_we = np.asarray(V_WE, dtype=np.float64)
+        if v_we.shape != (6,):
+            raise ValueError("len(V_WE) != 6")
+        v_max = np.asarray(v_max, dtype=np.float64)
+        if v_max.shape != (self.num_positions(),):
+            raise ValueError("len(v_max) != num_positions")
+        alpha, v, ok = self.diff_ik_batch(x0[None], v_we[None], v_max[None],
+                                          ee_offset=ee_offset)
+        if not bool(ok[0]):
+            return None
+        return float(alpha[0]), v[0].double().cpu().tolist()
+
+    def _diffik_rescue(self, alpha, v, ok, x0, v_we, v_max, ee_r, ee_t):
+        """Re-solve ok=False lanes with the iterative ADMM path and merge.
+
+        The exact gauge enumeration reports ok=False on a small share of
+        random instances: degenerate geometry (rank-deficient J with V in
+        its range) its facet cuts cannot certify.  The reference's
+        interior-point LP solves most of these (lib.rs:216-228); the ADMM
+        formulation (``solver/diffik.diff_ik_admm_batch``) is the
+        same-capability iterative solve, so re-solving just the failed
+        lanes recovers that ok rate.  Lanes the ADMM also rejects stay
+        ok=False (honest gate).
+
+        The failed lanes are solved at their true count and merged on the
+        device: the host fetches their indices (the call's one blocking
+        round trip) and nothing else.  Lanes that were ok keep their values
+        bit for bit.
+        """
+        bad = torch.nonzero(~ok).squeeze(1)  # the one fetch
+        if bad.numel() == 0:
+            return alpha, v, ok
+        sa, sv, sk = diffik.diff_ik_admm_batch(
+            self.params, x0[bad], v_we[bad], v_max[bad], ee_r, ee_t)
+        idx = bad[sk]
+        alpha[idx] = sa[sk]
+        v[idx] = sv[sk]
+        ok[idx] = True
+        return alpha, v, ok
+
+    def diff_ik_batch(self, x0: ArrayLike, V_WE: ArrayLike,
+                      v_max: ArrayLike,
+                      ee_offset: Optional[ArrayLike] = None,
+                      rescue: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Batched diff-IK: (B,A), (B,6), (B,A) -> (alpha (B,), v (B,A),
+        ok (B,)), tensors on this Robot's device.
+
+        ``rescue`` (default True): re-solve any ok=False lanes of the
+        exact gauge path with the iterative ADMM solver and merge (see
+        :meth:`_diffik_rescue`).  The check fetches the failed lanes'
+        indices (one blocking device round trip per call); pipelined
+        throughput callers pass ``False`` and handle ok lanes themselves.
+
+        The exact path holds a few dozen live (C(n,5), B) tensors at its
+        peak (n=7: 21 rows, n=10: 252): chunk huge batches of 8-10-joint
+        arms.
+        """
+        ee_r, ee_t = self._ee_offset(ee_offset)
+        x0 = self._tensor(x0)
+        v_we = self._tensor(V_WE)
+        v_max = self._tensor(v_max)
+        fn = self._diffik_solver()
+        if fn is None:
+            return diffik.diff_ik_admm_batch(self.params, x0, v_we, v_max,
+                                             ee_r, ee_t)
+        alpha, v, ok = fn(x0, v_we, v_max, ee_r, ee_t)
+        if rescue:
+            alpha, v, ok = self._diffik_rescue(alpha, v, ok, x0, v_we, v_max,
+                                               ee_r, ee_t)
+        return alpha, v, ok

@@ -19,6 +19,11 @@ kernel's schedule to the same bitwise standard at its edges: one pose,
 fewer poses than thread groups, batches that make every group (and every
 pair of warps) draw many poses in one launch, padded lanes inside a group
 that refills, and launches back to back on one stream.
+
+The Jacobian and diff-IK cases at the end run no kernel of ours (that path
+is plain eager tensor operations): they hold the entry points' contracts on
+the card (f32 in, f32 out on the device, bounds, tracking against an f64
+Jacobian, bitwise repeats and batch invariance, rescue, the ADMM route).
 """
 
 import numpy as np
@@ -346,3 +351,172 @@ def test_ee_offset_and_six_dof_chain():
     r, t = ur5.fk_batch(res.x[res.found], ee_offset=ee)
     torch.testing.assert_close(r, tr[res.found], rtol=0, atol=2e-3)
     torch.testing.assert_close(t, tt[res.found], rtol=0, atol=2e-3)
+
+
+# --- Jacobians and differential IK on the card --------------------------------
+
+
+def _chain_urdf(n, planar=False):
+    links = "".join(f'<link name="l{i}"/>' for i in range(n + 1))
+    joints = "".join(
+        f'<joint name="j{i}" type="revolute">'
+        f'<parent link="l{i}"/><child link="l{i + 1}"/>'
+        + ('<origin xyz="0.2 0 0" rpy="0 0 0"/><axis xyz="0 0 1"/>' if planar
+           else f'<origin xyz="0.2 0 0.1" rpy="0 0 0"/>'
+                f'<axis xyz="{"0 0 1" if i % 2 == 0 else "0 1 0"}"/>')
+        + '<limit lower="-2.5" upper="2.5" effort="1" velocity="1"/></joint>'
+        for i in range(n))
+    return f'<robot name="chain{n}">{links}{joints}</robot>'
+
+
+def _world_jacobian64(spec, x):
+    """J_W of every configuration in f64 on the card: (B, 6, A)."""
+    bot = Robot(spec, dtype=torch.float64, device="cuda")
+    r, _ = bot.fk_batch(x.double())
+    j = bot.jacobian_batch(x.double())
+    return torch.cat([r @ j[:, :3], r @ j[:, 3:]], dim=1)
+
+
+def _diffik_problem(robot, seed, b=B, reachable=False):
+    rng = np.random.default_rng(seed)
+    n = robot.num_positions()
+    x0 = torch.tensor(rng.uniform(*robot.joint_limits(), size=(b, n)),
+                      dtype=torch.float32, device="cuda")
+    v_max = torch.tensor(rng.uniform(0.3, 1.2, size=(b, n)),
+                         dtype=torch.float32, device="cuda")
+    jw = _world_jacobian64(robot.spec, x0)
+    if reachable:   # commands inside the reachable cone: alpha = 1 feasible
+        inside = torch.tensor(rng.uniform(-0.2, 0.2, size=(b, n, 1)),
+                              device="cuda")
+        v_we = (jw @ inside)[:, :, 0].float()
+    else:
+        v_we = torch.tensor(rng.standard_normal((b, 6)), dtype=torch.float32,
+                            device="cuda")
+    return x0, v_we, v_max, jw
+
+
+def _check_contracts(out, v_we, v_max, jw, track_tol=1.1e-5):
+    alpha, v, ok = out
+    assert alpha.dtype == v.dtype == torch.float32 and ok.dtype == torch.bool
+    assert alpha.is_cuda and v.is_cuda and ok.is_cuda
+    assert bool(torch.isfinite(alpha).all()) and bool(torch.isfinite(v).all())
+    assert float(alpha.min()) >= 0.0 and float(alpha.max()) <= 1 + 1e-6
+    assert float((v.abs() - v_max).max()) <= 1e-6
+    res = (jw @ v.double()[:, :, None])[:, :, 0] \
+        - alpha.double()[:, None] * v_we.double()
+    rel = res.abs().amax(dim=1) / (1 + v_we.double().abs().amax(dim=1))
+    assert float(rel[ok].max()) <= track_tol
+
+
+def test_jacobians_on_the_card(robot):
+    from optik_tpu_torch.ops import kinematics
+
+    x0, _, _, _ = _diffik_problem(robot, seed=20)
+    jac = robot.jacobian_batch(x0)
+    assert jac.shape == (B, 6, 7) and jac.dtype == torch.float32
+    assert jac.is_cuda
+    arr = kinematics.joint_jacobian(robot.params, x0)
+    ref = Robot(robot.spec, dtype=torch.float64, device="cpu").jacobian_batch(
+        x0.double().cpu())
+    assert float((jac - arr).abs().max()) <= 1e-5
+    assert float((jac.double().cpu() - ref).abs().max()) <= 1e-5
+    row0 = robot.joint_jacobian(x0[0].double().cpu().numpy())
+    assert row0.shape == (6, 7) and row0.dtype == np.float32
+    assert float(np.abs(row0 - jac[0].cpu().numpy()).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("commands", ["random", "constant"])
+def test_diff_ik_contracts_on_the_card(robot, commands):
+    x0, v_we, v_max, jw = _diffik_problem(robot, seed=21)
+    if commands == "constant":
+        v_we = torch.tensor([0.0, 0.0, 0.1, 0.0, 0.0, 0.0],
+                            device="cuda").repeat(B, 1)
+        v_max = torch.full_like(v_max, 0.75)
+    out = robot.diff_ik_batch(x0, v_we, v_max, rescue=False)
+    _check_contracts(out, v_we, v_max, jw)
+    assert float(out[2].float().mean()) >= 0.99
+    # Against the port's own f64 solve on the host CPU.
+    ref = Robot(robot.spec, dtype=torch.float64, device="cpu").diff_ik_batch(
+        x0.double().cpu(), v_we.double().cpu(), v_max.double().cpu(),
+        rescue=False)
+    ok = out[2].cpu()
+    assert int((ok != ref[2]).sum()) <= 1
+    both = ok & ref[2]
+    assert float((out[0].cpu().double() - ref[0])[both].abs().max()) <= 2e-4
+
+
+def test_diff_ik_repeat_and_batch_invariance_are_bitwise(robot):
+    x0, v_we, v_max, _ = _diffik_problem(robot, seed=22)
+    out = robot.diff_ik_batch(x0, v_we, v_max, rescue=False)
+    again = robot.diff_ik_batch(x0, v_we, v_max, rescue=False)
+    part = robot.diff_ik_batch(x0[:37], v_we[:37], v_max[:37], rescue=False)
+    for a, b, c in zip(out, again, part):
+        assert torch.equal(a, b) and torch.equal(a[:37], c)
+    one = robot.diff_ik(x0[0].double().cpu().numpy(),
+                        v_we[0].double().cpu().numpy(),
+                        v_max[0].double().cpu().numpy())
+    assert bool(out[2][0]) and one is not None
+    assert one[0] == float(out[0][0])
+    assert one[1] == out[1][0].double().cpu().tolist()
+
+
+def test_diff_ik_rescue_on_the_card(robot):
+    # A healthy Panda batch: lanes that were ok come back bit for bit.
+    x0, v_we, v_max, jw = _diffik_problem(robot, seed=23)
+    a0, v0, ok0 = robot.diff_ik_batch(x0, v_we, v_max, rescue=False)
+    a1, v1, ok1 = robot.diff_ik_batch(x0, v_we, v_max)
+    assert bool(ok1[ok0].all())
+    assert torch.equal(a1[ok0], a0[ok0]) and torch.equal(v1[ok0], v0[ok0])
+    _check_contracts((a1, v1, ok1), v_we, v_max, jw)
+    # The planar chain: the gauge rejects its lanes, the ADMM accepts all.
+    planar = Robot.from_urdf_str(_chain_urdf(6, planar=True), "l0", "l6",
+                                 device="cuda")
+    x0, v_we, _, jw = _diffik_problem(planar, seed=24, b=64, reachable=True)
+    v_max = torch.ones_like(x0)
+    _, _, ok0 = planar.diff_ik_batch(x0, v_we, v_max, rescue=False)
+    out = planar.diff_ik_batch(x0, v_we, v_max)
+    assert not bool(ok0.all()) and bool(out[2].all())
+    assert float(out[0].min()) >= 1 - 1e-3
+    _check_contracts(out, v_we, v_max, jw, track_tol=5e-4)
+
+
+def test_four_joints_route_to_the_admm_path():
+    from optik_tpu_torch.solver import diffik
+
+    bot = Robot.from_urdf_str(_chain_urdf(4), "l0", "l4", device="cuda")
+    assert bot._diffik_solver() is None
+    x0, v_we, _, jw = _diffik_problem(bot, seed=25, b=64, reachable=True)
+    v_max = torch.ones_like(x0)
+    out = bot.diff_ik_batch(x0, v_we, v_max)
+    direct = diffik.diff_ik_admm_batch(bot.params, x0, v_we, v_max)
+    for a, b in zip(out, direct):
+        assert torch.equal(a, b)
+    _check_contracts(out, v_we, v_max, jw, track_tol=2e-5)
+    assert float(out[2].float().mean()) >= 0.9
+
+
+def test_gauge_tie_takes_the_first_minimal_facet_on_the_card():
+    from optik_tpu_torch.solver import gauge
+
+    tie = torch.tensor([[3.0, 1.0, 1.0, 2.0], [1.0, 1.0, 1.0, 2.0],
+                        [1.0, 5.0, 1.0, 2.0]], device="cuda")
+    assert torch.argmin(tie, dim=0).tolist() == [1, 0, 0, 0]
+    rng = np.random.default_rng(2)
+    g = rng.standard_normal((7, 6, 256)).astype(np.float32)
+    g[1] = g[0]
+    vdir = rng.standard_normal((6, 256)).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        gens = [[torch.tensor(g[i, k], device=dev) for k in range(6)]
+                for i in range(7)]
+        vv = [torch.tensor(vdir[k], device=dev) for k in range(6)]
+        t, u = gauge.gauge_solve(gens, vv)
+        assert t.dtype == torch.float32
+        miss = torch.stack([sum(u[i] * gens[i][k] for i in range(7))
+                            - t * vv[k] for k in range(6)]).abs().amax(dim=0)
+        out[dev] = (t.cpu(), torch.stack(u).cpu(), miss.cpu() <= 1e-3)
+    good = out["cuda"][2] & out["cpu"][2]
+    assert int(good.sum()) >= 32
+    assert float(((out["cuda"][0] - out["cpu"][0]).abs()
+                  / out["cpu"][0])[good].max()) <= 1e-4
+    assert float((out["cuda"][1] - out["cpu"][1])[:, good].abs().max()) <= 1e-3

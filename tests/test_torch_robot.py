@@ -192,6 +192,10 @@ def test_import_adds_no_jax_module():
             "('jax', 'jaxlib', 'optik_tpu')}\n"
             "import optik_tpu_torch, optik_tpu_torch.robot\n"
             "import optik_tpu_torch.ops.cuda.build\n"
+            "import optik_tpu_torch.solver.diffik, optik_tpu_torch.solver.qp\n"
+            "import optik_tpu_torch.solver.gauge, optik_tpu_torch.math\n"
+            "import optik_tpu_torch.ops.kinematics\n"
+            "import optik_tpu_torch.ops.objective\n"
             "from optik_tpu_torch.benchmarks import bench_fp32_peak, "
             "exp_warp_probe, exp_bisect\n"
             "after = {m for m in sys.modules if m.split('.')[0] in "
@@ -219,7 +223,8 @@ def test_port_sources_import_no_jax():
     assert len(files) > 10
     names = {f.name for f in files}
     assert {"build.py", "bench_fp32_peak.py", "exp_warp_probe.py",
-            "exp_bisect.py"} <= names
+            "exp_bisect.py", "diffik.py", "gauge.py", "qp.py", "kinematics.py",
+            "objective.py", "so3.py", "se3.py", "linalg.py"} <= names
     for path in files:
         bad = {m for m in _imported_roots(path)
                if m in ("jax", "jaxlib", "optik_tpu")}
