@@ -80,8 +80,24 @@ Phases (each prints a line; any failed check exits non-zero):
      diff_ik_admm_batch (bounds and tracking), and an exact tie in the
      gauge's argmin (the first minimal facet wins on the card as on the
      CPU).
-Then one JSON line with the diff-IK paths, one with every kernel and, last,
-the result line.  Without a
+15. the multi-device paths of optik_tpu_torch.parallel on
+     the one card: (a) a real NCCL group of one rank, a (1, 1) mesh:
+     build_seed_sharded_solver and build_sharded_cascade at the main
+     config (B=131,072) and the Quality config (B=4,096), bitwise equal to
+     Robot.ik_batch, one launch per solve, solves/s of all three in turns
+     and the device time outside the LM kernel (the merge); (b) a gloo world
+     of 4 ranks sharing the card (NCCL refuses two ranks on one device):
+     seed-sharded on (1, 2) and (2, 2) meshes, found masks bitwise the
+     single-device ones, Quality x and cost bitwise, Speed winners within
+     tol_f, repeats bitwise, the ranks agree, each rank's kernel alone (in
+     turns) with its schedule probe's tail, and the merge's time; (c) the
+     sharded single-shot path on (2, 1) bitwise Robot.ik_batch on the whole
+     batch; (d) ik_sharded (the plain loop) on (1, 2) at B=1,024 bitwise the
+     unsharded plain loop, lane_iters equal.  Several ranks on one card
+     prove the merge, not the scaling.  Phase 6 calls ik_batch in bench.py's
+     form (validate_seeds=False, rescue_overflow=False; overflow_count 0).
+Then one JSON line with the diff-IK and sharded paths, one with every kernel
+and, last, the result line.  Without a
 card, or run from a directory that holds no checkout, it exits 2 and prints
 no result.
 """
@@ -101,6 +117,8 @@ B_QUALITY = 4096
 B_OPT = 512
 B_DIFFIK = (4096, 131072)
 B_ADMM = 64
+B_LOCKSTEP = 1024      # ik_sharded (the plain loop) on two ranks
+SHARD_WORLD = 4        # gloo ranks sharing the one card
 JAC_TOL = 1e-5         # f32 Jacobian entries against f64 (|J| is O(1))
 TRACK_TOL = 1.1e-5     # the solver's gate, 1e-5, plus the f32 Jacobian's rounding
 BOUND_EPS = 1e-6
@@ -110,10 +128,6 @@ QUALITY = dict(max_restarts=256, seed_batch=64, max_iters=48)
 FK_TOL = 2e-3         # cost <= 1e-6 is a pose residual of ~1e-3
 MASK_DIFF_FRAC = 1e-3  # marginal poses (cost within ~1e-7 of tol_f)
 LANE_FIELDS = ("x", "f", "success", "restart_index", "succ_iters")
-# Published peaks of the H100 SXM: FP32 outside the tensor cores (a fused
-# multiply-add counted as 2) and device memory.
-PEAK_FP32 = 66.9e12
-PEAK_BYTES = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -300,11 +314,13 @@ def lm_bytes(a, b, s, r):
 
 
 def bound(ops, nbytes):
-    """(bound_ms, bound_by): the larger of operations over the FP32 peak
-    and bytes over the memory rate."""
-    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+    """(bound_ms, bound_by) on this card: the larger of operations over the
+    FP32 peak and bytes over the memory rate (utils/roofline.py)."""
+    import torch
+
+    from optik_tpu_torch.utils import roofline
+
+    return roofline.bound_ms(ops, nbytes, torch.cuda.get_device_name(0))
 
 
 def planar_urdf(n=6):
@@ -661,6 +677,269 @@ def diffik_phases(robot, Robot, event_ms):
     return paths
 
 
+def sharded_rank(cases, spec, timed_cases):
+    """One rank of phases 15b-d, in a process of its own (launch.spawn).
+
+    Drives ``cases`` through launch.solve with the launch counter set to 0
+    just before and read just after.  Then, for each timed case (name,
+    config, data, seed, inputs), this rank's slice of the seed-sharded
+    solve: its kernel alone on the card (the ranks take turns, so each
+    time is what the rank's own card would take) with its schedule probe,
+    and the merge, timed with every rank of the mesh in it."""
+    import torch
+    import torch.distributed as dist
+
+    from optik_tpu_torch.benchmarks.timing import event_ms
+    from optik_tpu_torch.config import SolutionMode
+    from optik_tpu_torch.ops.cuda import lm_kernel
+    from optik_tpu_torch.parallel import distributed, launch
+    from optik_tpu_torch.parallel import mesh as mesh_mod
+    from optik_tpu_torch.solver import ik as ik_mod
+
+    lm_kernel.LAUNCHES = 0
+    results = launch.solve(cases, spec)
+    launches = lm_kernel.LAUNCHES
+    rank, world = dist.get_rank(), dist.get_world_size()
+    device = distributed.local_device()
+    timings = []
+    for name, cfg, data, seed, inputs in timed_cases:
+        mesh = mesh_mod.make_mesh(range(data * seed), data=data, seed=seed)
+        entry = {"name": name, "rank": rank, "coord": mesh.coord}
+        if mesh.coord is not None:
+            r_sub = cfg.total_restarts // seed
+            plan = lm_kernel.KernelPlan(spec,
+                                        cfg.replace(max_restarts=r_sub))
+            tr, tt, x0 = (torch.as_tensor(v, device=device) for v in inputs)
+            rows, d = mesh.shard(tr.shape[0]), mesh.index("seed")
+            part = (plan, tr[rows], tt[rows], x0[rows])
+            off = d * r_sub
+
+            def one_launch():
+                return lm_kernel.solve_kernel(*part, restart_offset=off,
+                                              lane0_stream=d > 0)
+
+            res = lm_kernel.select(plan, one_launch(), x0[rows])
+            key = res.sel_key
+            if cfg.solution_mode == SolutionMode.SPEED:
+                key = torch.where(res.found, key.to(torch.int64) + off,
+                                  ik_mod.INT32_MAX)
+        for turn in range(world):
+            if turn == rank and mesh.coord is not None:
+                entry["kernel_ms"] = event_ms(one_launch, 3)
+                entry["schedule"] = lm_kernel.schedule_profile(one_launch())
+            dist.barrier()
+        if mesh.coord is not None:
+            merge_ms = []
+            for _ in range(3):
+                dist.barrier(group=mesh.groups["mesh"])
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                mesh.merge(res, key)
+                torch.cuda.synchronize(device)
+                merge_ms.append(1e3 * (time.perf_counter() - t0))
+            entry["merge_ms"] = sorted(merge_ms)[1]
+        timings.append(entry)
+    return {"results": results, "launches": launches, "timings": timings}
+
+
+def same_results(a, b, fields=("found", "x", "cost", "iters")):
+    import torch
+
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+               for f in fields)
+
+
+def check_found_winners(got, ref, what, x0=None):
+    """found bitwise equal to ``ref``'s; x and cost bitwise on found poses;
+    not-found poses carry (x0, +inf) where ``x0`` is given."""
+    import torch
+
+    got_f, ref_f = got.found.cpu(), ref.found.cpu()
+    check(torch.equal(got_f, ref_f), f"{what}: found mask differs from the "
+          f"single-device solve on {int((got_f != ref_f).sum())} poses")
+    gx, rx = got.x.cpu()[ref_f], ref.x.cpu()[ref_f]
+    bad = (gx != rx).any(dim=1) | (got.cost.cpu()[ref_f]
+                                   != ref.cost.cpu()[ref_f])
+    check(not bool(bad.any()), f"{what}: x or cost differs from the "
+          f"single-device solve on {int(bad.sum())} found poses, by up to "
+          f"{float((gx - rx).abs().max()):.3g}")
+    if x0 is not None:
+        check(torch.equal(got.x.cpu()[~ref_f], x0.cpu()[~ref_f])
+              and bool(torch.isinf(got.cost.cpu()[~ref_f]).all()),
+              f"{what}: a not-found pose does not carry (x0, +inf)")
+
+
+def sharded_phases(robot, cfg, qcfg, main_in, q_in, main_ref, q_ref):
+    """Phase 15: the multi-device paths (optik_tpu_torch.parallel).
+    Returns the entries of the ``paths`` line and the launches per path."""
+    import torch
+
+    from optik_tpu_torch.ops.cuda import lm_kernel
+    from optik_tpu_torch.parallel import distributed, launch
+    from optik_tpu_torch.parallel import mesh as mesh_mod
+    from optik_tpu_torch.solver import ik as ik_mod
+
+    paths, launches = [], {}
+    t_phase = time.perf_counter()
+
+    # 15a. A real NCCL group of one rank, here: the seed-sharded solve and
+    # the sharded single-shot path on a (1, 1) mesh are Robot.ik_batch bit
+    # for bit; their cost over it is the merge and the assembly.
+    distributed.initialize(f"tcp://localhost:{launch.free_port()}", 1, 0,
+                           backend="nccl", timeout=300)
+    try:
+        mesh = mesh_mod.make_mesh(data=1, seed=1)
+        for label, c, (a_tr, a_tt, a_x0), ref, b in (
+                ("Speed", cfg, main_in, main_ref, B_MAIN),
+                ("Quality", qcfg, q_in, q_ref, B_QUALITY)):
+            seeded_fn = mesh_mod.build_seed_sharded_solver(robot, c, mesh)
+            casc_fn = mesh_mod.build_sharded_cascade(robot, c, mesh)
+            fns = {
+                "ik_batch": lambda: robot.ik_batch(
+                    c, a_tr, a_tt, a_x0, validate_seeds=False,
+                    rescue_overflow=False),
+                "seed_sharded": lambda: seeded_fn(a_tr, a_tt, a_x0),
+                "sharded_cascade": lambda: casc_fn(a_tr, a_tt, a_x0)}
+            for name in ("seed_sharded", "sharded_cascade"):
+                fns[name]()  # warm: plan, the group's communicator
+                lm_kernel.LAUNCHES = 0
+                out = fns[name]()
+                torch.cuda.synchronize()
+                n = lm_kernel.LAUNCHES
+                check(n == 1, f"NCCL {label} {name} launched the kernel {n} "
+                      "times in one solve")
+                launches[f"nccl (1, 1) {label} {name}"] = n
+                check_found_winners(out, ref, f"NCCL (1, 1) {label} {name}",
+                                    a_x0 if name == "seed_sharded" else None)
+                if name == "sharded_cascade":
+                    check(same_results(out, ref) and int(out.overflow_count)
+                          == 0, f"NCCL (1, 1) {label} {name} differs from "
+                          "Robot.ik_batch")
+            # Solves/s in turns, then device time outside the LM kernel.
+            per_s = {k: [] for k in fns}
+            for _ in range(2):
+                for k, fn in fns.items():
+                    per_s[k].append(b / timed(fn, 5))
+            other_ms = {}
+            for k, fn in fns.items():
+                split = profile_split(fn, 3)
+                other_ms[k] = None if split is None else sum(
+                    v for n, v in split["kernels"].items()
+                    if "lm_solve" not in n) / 3
+            merge_ms = None if None in other_ms.values() else \
+                other_ms["seed_sharded"] - other_ms["ik_batch"]
+            print(f"NCCL world of 1, (1, 1) mesh, {label} @B={b}: "
+                  "build_seed_sharded_solver and build_sharded_cascade "
+                  "bitwise equal to Robot.ik_batch (found; x and cost of "
+                  "found poses; the cascade in every field); solves/s "
+                  "(median of 5, two turns): " + "; ".join(
+                      f"{k} " + " / ".join(f"{v:.0f}" for v in vs)
+                      for k, vs in per_s.items())
+                  + "; device ms per call outside the LM kernel "
+                  "(profiler): " + ", ".join(
+                      f"{k} " + ("not measured" if v is None
+                                 else f"{v:.4f}")
+                      for k, v in other_ms.items())
+                  + "; the merge: " + ("not measured" if merge_ms is None
+                                       else f"{merge_ms:.4f} ms")
+                  + f" ({time.perf_counter() - t_phase:.1f} s into phase 15)",
+                  flush=True)
+            paths.append({"name": "nccl (1, 1)", "mode": label, "B": b,
+                          "solves_per_s": per_s,
+                          "device_ms_outside_kernel": other_ms,
+                          "merge_device_ms": merge_ms})
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+    # 15b-d. Gloo ranks sharing the card: seed-sharded at (1, 2) and
+    # (2, 2), the sharded single-shot path at (2, 1), ik_sharded at (1, 2).
+    def host(t3):
+        return tuple(t.cpu() for t in t3)
+
+    big, qbig = host(main_in), host(q_in)
+    lock = tuple(t[:B_LOCKSTEP] for t in big)
+    cases, timed_cases = [], []
+    for label, c, inputs in (("Speed", cfg, big), ("Quality", qcfg, qbig)):
+        for shape in ((1, 2), (2, 2)):
+            cases.append(launch.Case("seed_sharded", c, *shape, inputs,
+                                     repeat=2))
+            timed_cases.append((f"{label} {shape}", c, *shape, inputs))
+    cases.append(launch.Case("cascade", cfg, 2, 1, big))
+    cases.append(launch.Case("ik_sharded", cfg, 1, 2, lock))
+    t0 = time.perf_counter()
+    ranks = launch.spawn(sharded_rank, SHARD_WORLD, cases, robot.spec,
+                         timed_cases, timeout=600)
+    spawn_s = time.perf_counter() - t0
+    for k, case in enumerate(cases):
+        outs = [r["results"][k] for r in ranks if r["results"][k] is not None]
+        check(all(isinstance(o, list) for o in outs),
+              f"gloo case {k} failed: {outs[0]}")
+        check(all(same_results(a, b) for o in outs for a, b in zip(outs[0], o)),
+              f"gloo case {k}: the ranks' results differ")
+        check(all(same_results(outs[0][0], a) for a in outs[0][1:]),
+              f"gloo case {k}: a repeat is not bitwise equal")
+    want = [9, 9, 4, 4]  # one launch per seed-sharded or cascade solve
+    got_launch = [r["launches"] for r in ranks]
+    check(got_launch == want, f"gloo ranks launched the kernel {got_launch} "
+          f"times, expected {want}")
+    launches["gloo ranks (seed-sharded and cascade)"] = got_launch
+    k = 0
+    for label, ref, x0_ in (("Speed", main_ref, main_in[2]),
+                            ("Quality", q_ref, q_in[2])):
+        for shape in ((1, 2), (2, 2)):
+            got = ranks[0]["results"][k][0]
+            what = f"gloo {shape} seed-sharded {label}"
+            if label == "Quality":
+                check_found_winners(got, ref, what, x0_)
+            else:
+                check(torch.equal(got.found, ref.found.cpu()),
+                      f"{what}: found mask differs from the single-device "
+                      "solve")
+                moved = got._replace(x=got.x.cuda(), cost=got.cost.cuda(),
+                                     found=got.found.cuda())
+                check_solutions(robot, moved, main_in[0], main_in[1],
+                                cfg.tol_f, what)
+            k += 1
+    casc = ranks[0]["results"][k][0]
+    check(same_results(casc, main_ref),
+          "gloo (2, 1) sharded single-shot path differs from Robot.ik_batch "
+          "on the whole batch")
+    lock_out = ranks[0]["results"][k + 1][0]
+    ref_lock = ik_mod.build_batch_solver(robot.spec, cfg, torch.float32,
+                                         "cuda")(*(t.cuda() for t in lock))
+    check(same_results(lock_out, ref_lock)
+          and int(lock_out.lane_iters) == int(ref_lock.lane_iters),
+          "gloo (1, 2) ik_sharded differs from the unsharded plain loop")
+    for entry in (e for r in ranks for e in r["timings"]):
+        if "kernel_ms" not in entry:
+            continue
+        sched = entry["schedule"]
+        print(f"gloo {entry['name']} rank {entry['rank']} {entry['coord']}: "
+              f"kernel alone {entry['kernel_ms']:.3f} ms (CUDA events, "
+              f"ranks in turns), span {sched['span_ms']:.3f} ms, tail after "
+              f"the last draw {sched['tail_ms']:.3f} ms = "
+              f"{100 * sched['tail_share']:.1f}%, "
+              f"{sched['lane_iters_per_solve']:.1f} lane-iterations per "
+              f"solve; merge {entry['merge_ms']:.3f} ms (host clock, every "
+              f"rank of the mesh in it)", flush=True)
+    print(f"gloo world of {SHARD_WORLD} ranks on the one card ({spawn_s:.1f} "
+          f"s with start-up): seed-sharded (1, 2) and (2, 2) found masks "
+          f"bitwise the single-device ones, Quality x and cost bitwise, Speed "
+          f"winners within tol_f and FK {FK_TOL}, repeats bitwise, the ranks "
+          f"agree; (2, 1) sharded single-shot path bitwise Robot.ik_batch; "
+          f"(1, 2) ik_sharded @B={B_LOCKSTEP} bitwise the unsharded plain "
+          f"loop, lane_iters {int(lock_out.lane_iters)}; kernel launches per "
+          f"rank {got_launch}; phase 15 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    paths.append({"name": "gloo ranks on one card", "world": SHARD_WORLD,
+                  "spawn_s": spawn_s, "timings": [
+                      e for r in ranks for e in r["timings"]
+                      if "kernel_ms" in e]})
+    return paths, launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -834,9 +1113,11 @@ def main() -> int:
           f"in {lone_iter_ms * lone_trips:.3f} ms = {1e3 * lone_iter_ms:.2f} "
           "us per iteration", flush=True)
 
-    # 6. The main path, through the user-facing entry points.
+    # 6. The main path, through the user-facing entry points, in bench.py's
+    # call form.
     def solve():
-        return robot.ik_batch(cfg, tr, tt, x0, validate_seeds=False)
+        return robot.ik_batch(cfg, tr, tt, x0, validate_seeds=False,
+                              rescue_overflow=False)
 
     solve()  # warm: solver build and seed-table upload
     lm_kernel.LAUNCHES = 0
@@ -850,6 +1131,8 @@ def main() -> int:
     success = float(res.found.float().mean())
     check(success >= 0.99, f"main-path success {success} < 0.99")
     fk_main = check_solutions(robot, res, tr, tt, cfg.tol_f, "main path")
+    check(int(res.overflow_count) == 0, "the single-shot path reported "
+          "overflow")
     lane_iters = int(res.lane_iters)
     print(f"main path @B={B_MAIN}: success {success:.6f}, "
           f"{B_MAIN / main_s:.0f} solves/s kernel path (median of {runs}, "
@@ -1144,6 +1427,12 @@ def main() -> int:
     # 12-14. Jacobians and differential IK (plain eager tensor operations).
     paths = diffik_phases(robot, Robot, event_ms)
 
+    # 15. The multi-device paths, last: their process groups and ranks come
+    # after every single-device measurement.
+    shard_paths, shard_launches = sharded_phases(
+        robot, cfg, qcfg, (tr, tt, x0), (qtr, qtt, qx0), res, qres)
+    paths += shard_paths
+
     print(f"total wall time {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"paths": paths}), flush=True)
@@ -1162,6 +1451,7 @@ def main() -> int:
          "lone_warp_us_per_iteration": 1e3 * lone_iter_ms,
          "unlimited_ms": u_s * 1e3, "unlimited_repeat_ms": u_warm_s * 1e3,
          "unlimited_late_round_ms": late_ms,
+         "sharded_launches": shard_launches,
          "build_wall_s": build_wall_s},
         {"name": "fp32_peak", "route": "cuda",
          "source": "optik_tpu_torch/csrc/fp32_peak.cu",

@@ -1153,9 +1153,17 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
       if (track_best) {
         // Record this attempt's solution if it is the lane's best success so
         // far (least distance to the caller's seed), then keep exploring.
-        float d2 = (x[0] - q0[0]) * (x[0] - q0[0]);
+        // The distance is never contracted (__fmul_rn / __fadd_rn): it is
+        // bitwise the one the winner selection computes outside the kernel
+        // (solver/ik.seed_distance), so a lane's best and the pick among
+        // lanes order attempts alike, on one card or split over several.
+        const float e0 = x[0] - q0[0];
+        float d2 = __fmul_rn(e0, e0);
 #pragma unroll
-        for (int p = 1; p < A; ++p) d2 = d2 + (x[p] - q0[p]) * (x[p] - q0[p]);
+        for (int p = 1; p < A; ++p) {
+          const float e = x[p] - q0[p];
+          d2 = __fadd_rn(d2, __fmul_rn(e, e));
+        }
         const float d = sqrtf(d2);
         if (run && succ_now && (d < bd)) {
 #pragma unroll

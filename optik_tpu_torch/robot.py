@@ -23,8 +23,11 @@ The Jacobians and differential IK are plain eager tensor operations on the
 Robot's device (no kernel of the JAX package lies on that path): the exact
 zonotope-gauge solve for 5 to 10 joints (``solver/gauge.py``), the ADMM
 solve (``solver/qp.py``) otherwise and as the rescue of lanes the gauge
-cannot certify.  Overflow rescue, the cascade and sharding are not ported
-yet (ROADMAP Queue 1).
+cannot certify.  ``ik_batch`` keeps the JAX signature's ``rescue_overflow``:
+the port runs the single-shot schedule only (it has no cascade, by decision:
+``solver/ik.py``), which has no capacity to overflow, so nothing is ever
+re-solved and ``overflow_count`` is 0.  Sharding over several devices is
+``optik_tpu_torch.parallel``.
 """
 
 from __future__ import annotations
@@ -309,12 +312,14 @@ class Robot:
             lane_iters = lane_iters + sub.lane_iters
         return ik_mod.IKResult(found=found, x=x, cost=cost, iters=iters,
                                lane_iters=lane_iters,
-                               found_count=found.sum())
+                               found_count=found.sum(),
+                               overflow_count=res.overflow_count)
 
     def ik_batch(self, config: SolverConfig, tgt_r: ArrayLike,
                  tgt_t: ArrayLike, x0: ArrayLike,
                  ee_offset: Optional[ArrayLike] = None,
                  validate_seeds: bool = True,
+                 rescue_overflow: bool = True,
                  _restart_offset: Optional[int] = None) -> ik_mod.IKResult:
         """Batched IK over B poses: (B,3,3), (B,3), (B,A) -> IKResult.
 
@@ -326,6 +331,12 @@ class Robot:
         :meth:`_ik_batch_unlimited`), whose continuation rounds pass
         ``_restart_offset``.  The winner-selection key (``sel_key``) is
         internal and not part of the result, as in the JAX package.
+
+        ``rescue_overflow`` is the JAX package's (``optik_tpu/robot.py``):
+        there it re-solves the poses the cascade's capacities denied their
+        full budget.  Every path here is the single-shot schedule the
+        rescue restores, so the flag changes nothing, no pose is re-solved
+        and ``overflow_count`` is 0.
         """
         if config.max_restarts == 0 and _restart_offset is None:
             return self._ik_batch_unlimited(config, tgt_r, tgt_t, x0,
@@ -345,7 +356,8 @@ class Robot:
                 ee_r = self._tensor(ee_pair[0])
                 ee_t = self._tensor(ee_pair[1])
             res = fn(tgt_r, tgt_t, x0, ee_r, ee_t, restart_offset=off)
-        return res._replace(sel_key=None)
+        return res._replace(sel_key=None, overflow_count=torch.zeros(
+            (), dtype=torch.int32, device=self.device))
 
     # --- differential IK --------------------------------------------------
 

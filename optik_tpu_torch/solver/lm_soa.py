@@ -21,6 +21,13 @@ is the JAX loop's schedule probe (``lm_soa.py:83``, ``:268-269``): the
 iterations each lane ran before it stopped, i.e. the lane-iterations the
 inputs need under this schedule.  The JAX version's ``unroll`` option shapes
 compilation, not results, and is not ported.
+
+The lanes of one pose meet in three places only: the Speed freeze (does any
+lane of the pose hold a success?), the Quality cap (how many successes do
+the pose's lanes hold?) and the loop's stop test (has every lane stopped?).
+:class:`LaneReduce` is that hook; its default reduces over the lanes this
+process holds.  A sharded solve (``parallel/mesh.py``, ``ik_sharded``)
+passes one that also reduces over the ranks that hold the other lanes.
 """
 
 from __future__ import annotations
@@ -31,6 +38,26 @@ import torch
 
 from ..ops import soa
 from .lm import LMOptions, LMResult
+
+
+class LaneReduce:
+    """Where the lanes of a pose meet in :func:`lm_loop`: over the lanes
+    this process holds (the default)."""
+
+    def group_any(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Whether any lane of each pose holds ``t`` (keeps ``dim``)."""
+        return t.any(dim=dim, keepdim=True)
+
+    def group_sum(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum of ``t`` over the lanes of each pose (keeps ``dim``)."""
+        return t.sum(dim=dim, keepdim=True)
+
+    def all_stopped(self, stopped: torch.Tensor) -> bool:
+        """The loop's stop test: whether every lane has stopped."""
+        return bool(stopped.all())
+
+
+LOCAL = LaneReduce()
 
 
 class LoopOut(NamedTuple):
@@ -61,13 +88,16 @@ def lm_loop(consts, lower, upper, opts: LMOptions,
             qx0=None,               # A components: caller's seed (quality)
             group_success_cap: Optional[int] = None,
             approx: bool = False,
-            track_active: bool = False) -> LoopOut:
+            track_active: bool = False,
+            reduce: Optional[LaneReduce] = None) -> LoopOut:
     """The lockstep LM loop on component lists (see module docstring).
 
     ``approx`` selects kernel math mode (polynomial atan2/sincos).
     ``track_active`` counts, per lane, the iterations in which the lane was
     not stopped (``LoopOut.active_iters``); results do not depend on it.
+    ``reduce`` is where the lanes of a pose meet (default :data:`LOCAL`).
     """
+    red = LOCAL if reduce is None else reduce
     a = len(xs0)
     lane_shape = torch.broadcast_shapes(*[x.shape for x in xs0])
     dtype = xs0[0].dtype
@@ -114,7 +144,7 @@ def lm_loop(consts, lower, upper, opts: LMOptions,
             full(float("inf")), zero_i
 
     it = 0
-    while it < max_total_iters and not bool(stopped.all()):
+    while it < max_total_iters and not red.all_stopped(stopped):
         # Damped GN step from the carried (e, J) at the current iterate:
         # delta = -J^T (J J^T + lam I)^{-1} e   (6x6 SPD solve).
         jjt = [[None] * 6 for _ in range(6)]
@@ -234,7 +264,7 @@ def lm_loop(consts, lower, upper, opts: LMOptions,
             # Speed mode: once any restart of a pose succeeds, the pose's
             # remaining lanes freeze (winner = earliest success by
             # iteration, ties broken by lowest restart index).
-            pose_done = success.any(dim=group_axis, keepdim=True)
+            pose_done = red.group_any(success, group_axis)
             stopped = stopped | pose_done
             pending_next = pending_next & ~pose_done
 
@@ -243,7 +273,7 @@ def lm_loop(consts, lower, upper, opts: LMOptions,
             # completed that many successful attempts.
             succ_cnt = succ_cnt + (run & succ_now).to(torch.int32)
             if len(lane_shape) >= 2:
-                pose_cnt = succ_cnt.sum(dim=group_axis, keepdim=True)
+                pose_cnt = red.group_sum(succ_cnt, group_axis)
             else:
                 pose_cnt = succ_cnt
             capped = pose_cnt >= group_success_cap
@@ -281,15 +311,21 @@ def solve_soa(consts, lower, upper, opts: LMOptions,
               quality_x0: Optional[torch.Tensor] = None,
               group_success_cap: Optional[int] = None,
               approx: bool = False,
-              track_active: bool = False) -> LMResult:
+              track_active: bool = False,
+              s_lanes: Optional[int] = None,
+              reduce: Optional[LaneReduce] = None) -> LMResult:
     """Tensor-in/tensor-out wrapper around :func:`lm_loop`.
 
     Lane axes = x0.shape[:-1]; the seed-group axis (for Speed-mode pose
-    freezing) is the last lane axis.
+    freezing) is the last lane axis.  ``s_lanes`` is a pose's lane count,
+    the reseed stride (default: that axis's length; a sharded solve holds a
+    slice of the lanes and passes the whole count); ``reduce`` goes to
+    :func:`lm_loop`.
     """
     a = x0.shape[-1]
     lane_shape = x0.shape[:-1]
-    s_lanes = lane_shape[-1] if lane_shape else 1
+    if s_lanes is None:
+        s_lanes = lane_shape[-1] if lane_shape else 1
 
     xs0 = [x0[..., j] for j in range(a)]
     tgtm = [[tgt_r[..., i, j] for j in range(3)] for i in range(3)]
@@ -318,7 +354,7 @@ def solve_soa(consts, lower, upper, opts: LMOptions,
                   success_stops_group=success_stops_group, group_axis=-1,
                   explore_full_budget=explore_full_budget, qx0=qx0,
                   group_success_cap=group_success_cap, approx=approx,
-                  track_active=track_active)
+                  track_active=track_active, reduce=reduce)
 
     return LMResult(x=torch.stack(list(out.xs), dim=-1), f=out.f,
                     success=out.success, iters=out.iters,

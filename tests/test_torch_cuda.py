@@ -520,3 +520,90 @@ def test_gauge_tie_takes_the_first_minimal_facet_on_the_card():
     assert float(((out["cuda"][0] - out["cpu"][0]).abs()
                   / out["cpu"][0])[good].max()) <= 1e-4
     assert float((out["cuda"][1] - out["cpu"][1])[:, good].abs().max()) <= 1e-3
+
+
+# --- the multi-device paths (optik_tpu_torch.parallel) on the one card ---
+# NCCL refuses two ranks on one device, so the card runs a real NCCL group
+# of one rank and gloo ranks sharing it (gloo takes CUDA tensors for
+# all_reduce, which is all the merge needs).  Several ranks on one card
+# prove the merge, not the scaling.
+
+QCFG = SolverConfig.create("quality", max_restarts=64, seed_batch=16,
+                           max_iters=32)
+
+
+def _host(*tensors):
+    return tuple(t.cpu() for t in tensors)
+
+
+def _same(a, b, fields=("found", "x", "cost", "iters")):
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+               for f in fields)
+
+
+def _found_winners_equal(got, ref, x0=None):
+    f = ref.found.cpu()
+    ok = (torch.equal(got.found.cpu(), f)
+          and torch.equal(got.x.cpu()[f], ref.x.cpu()[f])
+          and torch.equal(got.cost.cpu()[f], ref.cost.cpu()[f]))
+    if x0 is not None:
+        ok = ok and torch.equal(got.x.cpu()[~f], x0.cpu()[~f]) \
+            and bool(torch.isinf(got.cost.cpu()[~f]).all())
+    return ok
+
+
+def test_nccl_world_of_one_is_the_facade_bitwise(robot):
+    from optik_tpu_torch.parallel import launch
+
+    tr, tt, x0 = _problem(robot, seed=4)
+    qtr, qtt, qx0 = _problem(robot, seed=5)
+    cases = [launch.Case("seed_sharded", CFG, 1, 1, _host(tr, tt, x0)),
+             launch.Case("cascade", CFG, 1, 1, _host(tr, tt, x0)),
+             launch.Case("seed_sharded", QCFG, 1, 1, _host(qtr, qtt, qx0)),
+             launch.Case("cascade", QCFG, 1, 1, _host(qtr, qtt, qx0))]
+    (out,) = launch.spawn(launch.solve, 1, cases, robot.spec,
+                          backend="nccl", timeout=300)
+    ref = robot.ik_batch(CFG, tr, tt, x0)
+    qref = robot.ik_batch(QCFG, qtr, qtt, qx0)
+    assert _found_winners_equal(out[0][0], ref, x0)
+    assert _same(out[1][0], ref) and int(out[1][0].overflow_count) == 0
+    assert _found_winners_equal(out[2][0], qref, qx0)
+    assert _same(out[3][0], qref)
+    assert float(ref.found.float().mean()) >= 0.99
+
+
+def test_gloo_ranks_sharing_the_card(robot):
+    from optik_tpu_torch.parallel import launch
+    from optik_tpu_torch.solver import ik as ik_mod
+
+    tr, tt, x0 = _problem(robot, seed=6)
+    qtr, qtt, qx0 = _problem(robot, seed=7)
+    big, qbig = _host(tr, tt, x0), _host(qtr, qtt, qx0)
+    lock = tuple(t[:128] for t in big)
+    cases = [launch.Case("seed_sharded", c, *shape, inputs, repeat=2)
+             for c, inputs in ((CFG, big), (QCFG, qbig))
+             for shape in ((1, 2), (2, 2))]
+    cases += [launch.Case("cascade", CFG, 2, 1, big),
+              launch.Case("ik_sharded", CFG, 1, 2, lock)]
+    ranks = launch.spawn(launch.solve, 4, cases, robot.spec, timeout=600)
+    for k in range(len(cases)):
+        outs = [r[k] for r in ranks if r[k] is not None]
+        assert all(_same(outs[0][0], o) for run in outs for o in run)
+    ref = robot.ik_batch(CFG, tr, tt, x0)
+    qref = robot.ik_batch(QCFG, qtr, qtt, qx0)
+    for k in (0, 1):  # Speed: the found mask; winners within the limits
+        got = ranks[0][k][0]
+        assert torch.equal(got.found, ref.found.cpu())
+        assert bool((got.cost[got.found] <= CFG.tol_f).all())
+        r, t = robot.fk_batch(got.x[got.found].cuda())
+        torch.testing.assert_close(r, tr[got.found.cuda()], rtol=0,
+                                   atol=2e-3)
+        torch.testing.assert_close(t, tt[got.found.cuda()], rtol=0,
+                                   atol=2e-3)
+    for k in (2, 3):  # Quality: bitwise the single-device solve
+        assert _found_winners_equal(ranks[0][k][0], qref, qx0)
+    assert _same(ranks[0][4][0], ref)
+    plain = ik_mod.build_batch_solver(robot.spec, CFG, torch.float32,
+                                      "cuda")(*(t.cuda() for t in lock))
+    assert _same(ranks[0][5][0], plain)
+    assert int(ranks[0][5][0].lane_iters) == int(plain.lane_iters)

@@ -186,6 +186,65 @@ def test_unlimited_restarts_match_jax(robots):
     assert int(got.found_count) == fu.sum()
 
 
+def test_bench_call_form_runs_on_the_port(robots):
+    """bench.py's headline call (``validate_seeds=False,
+    rescue_overflow=False``) runs on the port, the flag changes nothing
+    (every path is the single-shot schedule) and ``overflow_count`` is 0,
+    unlimited rounds included."""
+    jr, tr_ = robots
+    rng = np.random.default_rng(8)
+    lo, hi = jr.joint_limits()
+    rot, trans = tr_.fk_batch(rng.uniform(lo, hi, size=(8, 7)))
+    x0 = rng.uniform(lo, hi, size=(8, 7))
+    for cfg in (optik_tpu_torch.SolverConfig(**MAIN),
+                optik_tpu_torch.SolverConfig(**dict(MAIN, max_restarts=0))):
+        got = tr_.ik_batch(cfg, rot, trans, x0, validate_seeds=False,
+                           rescue_overflow=False)
+        ref = tr_.ik_batch(cfg, rot, trans, x0)
+        for f in ("found", "x", "cost", "iters", "lane_iters",
+                  "overflow_count"):
+            assert torch.equal(getattr(got, f), getattr(ref, f)), f
+        assert got.overflow_count.dtype == torch.int32
+        assert int(got.overflow_count) == 0
+        assert bool(got.found.all())
+
+
+def test_all_hard_batch_matches_single_shot():
+    """tests/test_overflow.py's contract on the port: a batch made only of
+    poses that fail a one-round screen (8 restarts) but are solvable with
+    the full budget (24) gets the single-shot found mask, every pose found,
+    and ``overflow_count`` 0 (the port has no capacity to overflow)."""
+    from optik_tpu_torch.solver import ik
+
+    cfg = optik_tpu_torch.SolverConfig(max_restarts=24, seed_batch=8,
+                                       max_iters=16)
+    robot = optik_tpu_torch.Robot.from_urdf_file(
+        asset_path("panda.urdf"), "panda_link0", "panda_hand_tcp",
+        device="cpu")
+    rng = np.random.default_rng(7)
+    lo, hi = robot.joint_limits()
+    rot, trans = robot.fk_batch(rng.uniform(lo, hi, size=(128, 7)))
+    x0 = torch.tensor(rng.uniform(lo, hi, size=(128, 7)),
+                      dtype=torch.float32)
+
+    def single_shot(c, r, t, x):
+        return ik.build_batch_solver(robot.spec, c, torch.float32)(r, t, x)
+
+    screen = single_shot(cfg.replace(max_restarts=8), rot, trans, x0).found
+    full = single_shot(cfg, rot, trans, x0).found
+    hard = torch.nonzero(~screen & full)[:, 0]
+    assert hard.numel() >= 1, "no screen-hard poses; loosen the budget"
+    idx = hard[torch.arange(32) % hard.numel()]
+    res = robot.ik_batch(cfg, rot[idx], trans[idx], x0[idx],
+                         validate_seeds=False)
+    assert torch.equal(res.found, single_shot(cfg, rot[idx], trans[idx],
+                                              x0[idx]).found)
+    assert bool(res.found.all())
+    assert int(res.overflow_count) == 0
+    assert bool((res.cost <= cfg.tol_f).all())
+    assert int(res.found_count) == 32
+
+
 def test_import_adds_no_jax_module():
     code = ("import sys\n"
             "before = {m for m in sys.modules if m.split('.')[0] in "
@@ -196,6 +255,9 @@ def test_import_adds_no_jax_module():
             "import optik_tpu_torch.solver.gauge, optik_tpu_torch.math\n"
             "import optik_tpu_torch.ops.kinematics\n"
             "import optik_tpu_torch.ops.objective\n"
+            "import optik_tpu_torch.parallel.launch\n"
+            "import optik_tpu_torch.parallel.distributed\n"
+            "import optik_tpu_torch.parallel.mesh\n"
             "from optik_tpu_torch.benchmarks import bench_fp32_peak, "
             "exp_warp_probe, exp_bisect\n"
             "after = {m for m in sys.modules if m.split('.')[0] in "
@@ -224,7 +286,8 @@ def test_port_sources_import_no_jax():
     names = {f.name for f in files}
     assert {"build.py", "bench_fp32_peak.py", "exp_warp_probe.py",
             "exp_bisect.py", "diffik.py", "gauge.py", "qp.py", "kinematics.py",
-            "objective.py", "so3.py", "se3.py", "linalg.py"} <= names
+            "objective.py", "so3.py", "se3.py", "linalg.py", "launch.py",
+            "distributed.py", "mesh.py"} <= names
     for path in files:
         bad = {m for m in _imported_roots(path)
                if m in ("jax", "jaxlib", "optik_tpu")}
