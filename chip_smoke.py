@@ -9,7 +9,9 @@ Phases (each prints a line; any failed check exits non-zero):
      all started together: the LM kernel (optik_tpu_torch/csrc/lm_kernel.cu)
      with the Panda's chain compiled in, in Speed, Speed+weights, Speed with
      two-warp poses and Quality, contracted and uncontracted (--fmad=false),
-     the FP32 throughput probe and the primitive probes; registers, spills,
+     the UR5's Speed library (phase 16's tight-limits set), the FP32
+     throughput probe and the primitive probes, and beside them the native
+     host library (optik_tpu_torch/native, g++); registers, spills,
      block size and resident warps per SM of each, and the FP32 operations
      in the Speed kernel's SASS (which must hold no double-precision
      arithmetic: the chain's static terms fold at compile time);
@@ -44,7 +46,13 @@ Phases (each prints a line; any failed check exits non-zero):
   9. option cases at B=512, uncontracted kernel bitwise equal to plain:
      per-axis weights (and a result that differs from the unweighted one),
      seed counts 3, 12 and 64, Quality with 16 lanes, Quality with a
-     success cap, restart_offset and lane0_stream;
+     success cap, restart_offset and lane0_stream; then S=128 (Quality, 256
+     restarts, 128 lanes), more lanes per pose than the kernel holds,
+     through Robot.ik_batch: it runs on the card on the plain loop (the
+     launch counter does not rise: the route is by config), success >=
+     0.99, every found cost <= tol_f, FK of found x within 2e-3, found masks
+     within 0.1% of the port's own f64 plain loop on the host CPU over the
+     same inputs (a comparison, never a substitute);
  10. the probes: fp32_peak (three bodies: uncontracted bitwise at full
      shape and depth, contracted within 1e-5 relative at 4 trips, then
      Gop/s), warp_probe (seven cases exact, the four that one PyTorch call
@@ -80,6 +88,21 @@ Phases (each prints a line; any failed check exits non-zero):
      diff_ik_admm_batch (bounds and tracking), and an exact tie in the
      gauge's argmin (the first minimal facet wins on the card as on the
      CPU).
+16. the native latency path and the success-parity harnesses
+     (optik_tpu_torch/benchmarks/parity_*.py), after 14 and before 15: (a)
+     the native binding's FK and Jacobian (f64, host) on 4,096 Panda
+     configurations within 2e-5 of Robot.fk_batch and jacobian_batch on the
+     card, then 200 random reachable poses solved by HostChain.ik and by
+     scalar Robot.ik on the card (B=1 through the kernel, warmed), p50 and
+     p90 latency of each, every found solution within tol_f and FK 2e-3;
+     (b) parity_native at its full 98,304 poses: kernel (Robot.ik_batch,
+     lm_solve) and native success rates, the failure overlap and both wall
+     times, kernel success >= 0.999, every found cost <= tol_f and FK within
+     2e-3; (c) parity_hard's engine and native columns at 10,000 poses per
+     cell (panda_uniform, panda_normal, ur5_tight; weak and strong budgets;
+     the engine at 32 iterations beside the weak budget), every found pose
+     checked as in (b), strong-budget panda_uniform >= 0.99; the SLSQP
+     column (CPU time) stays off the card's run; the phase's wall time;
 15. the multi-device paths of optik_tpu_torch.parallel on
      the one card: (a) a real NCCL group of one rank, a (1, 1) mesh:
      build_seed_sharded_solver and build_sharded_cascade at the main
@@ -96,8 +119,9 @@ Phases (each prints a line; any failed check exits non-zero):
      unsharded plain loop, lane_iters equal.  Several ranks on one card
      prove the merge, not the scaling.  Phase 6 calls ik_batch in bench.py's
      form (validate_seeds=False, rescue_overflow=False; overflow_count 0).
-Then one JSON line with the diff-IK and sharded paths, one with every kernel
-and, last, the result line.  Without a
+Then one JSON line with the diff-IK, S=128, native, parity and sharded
+paths, one with every kernel (lm_solve's launches on phases 9 and 16 among
+its fields) and, last, the result line.  Without a
 card, or run from a directory that holds no checkout, it exits 2 and prints
 no result.
 """
@@ -125,6 +149,12 @@ BOUND_EPS = 1e-6
 ALPHA_TOL = 2e-4       # f32 against f64 alpha (tests/test_gauge.py, against the LP)
 MAIN = dict(max_restarts=64, seed_batch=8, max_iters=32, tol_f=1e-6)
 QUALITY = dict(max_restarts=256, seed_batch=64, max_iters=48)
+S128 = dict(max_restarts=256, seed_batch=128)  # more lanes than a kernel pose
+N_NATIVE_KIN = 4096
+N_LATENCY = 200
+N_PARITY_NATIVE = 98304  # parity_native's 6 batches of 16,384
+N_HARD = 10000
+NATIVE_TOL = 2e-5      # f32 on the card against the native f64
 FK_TOL = 2e-3         # cost <= 1e-6 is a pose residual of ~1e-3
 MASK_DIFF_FRAC = 1e-3  # marginal poses (cost within ~1e-7 of tol_f)
 LANE_FIELDS = ("x", "f", "success", "restart_index", "succ_iters")
@@ -175,9 +205,9 @@ def problem(robot, b, seed):
 def check_solutions(robot, res, tr, tt, tol_f, what):
     import torch
 
-    n = res.found.shape[0]
-    check(res.x.shape == (n, 7) and bool(torch.isfinite(res.x).all()),
-          f"{what}: x not finite of shape ({n}, 7)")
+    n, a = res.found.shape[0], robot.num_positions()
+    check(res.x.shape == (n, a) and bool(torch.isfinite(res.x).all()),
+          f"{what}: x not finite of shape ({n}, {a})")
     cost = res.cost[res.found]
     check(bool((cost <= tol_f).all()),
           f"{what}: a found cost exceeds tol_f ({float(cost.max())})")
@@ -677,6 +707,154 @@ def diffik_phases(robot, Robot, event_ms):
     return paths
 
 
+def percentiles_us(seconds):
+    """(p50, p90) of per-call host seconds, in microseconds."""
+    import numpy as np
+
+    return tuple(float(v) for v in 1e6 * np.percentile(seconds, [50, 90]))
+
+
+def native_phases(robot, cfg):
+    """Phase 16: the native latency path (optik_tpu_torch.native) beside the
+    card's scalar path, then the success-parity harnesses' engine and
+    native columns.  Returns the entries of the ``paths`` line and the LM
+    kernel's launches per part."""
+    import numpy as np
+    import torch
+
+    from optik_tpu_torch.benchmarks import parity_hard, parity_native
+    from optik_tpu_torch.benchmarks.timing import host_cpu
+    from optik_tpu_torch.models import asset_path
+    from optik_tpu_torch.native import HostChain
+    from optik_tpu_torch.ops.cuda import lm_kernel
+
+    t_phase = time.perf_counter()
+    cpu = host_cpu()
+    paths, launches = [], {}
+    chain = HostChain.from_urdf_file(asset_path(parity_native.PANDA[0]),
+                                     *parity_native.PANDA[1:])
+    lo, hi = robot.joint_limits()
+
+    # 16a. The native binding's FK and Jacobian (f64, host) against the
+    # card's SoA path (f32), then single-solve latency on both.
+    rng = np.random.default_rng(16)
+    q = rng.uniform(lo, hi, size=(N_NATIVE_KIN, 7))
+    r, t = robot.fk_batch(q)
+    jac = robot.jacobian_batch(q)
+    fk_n = np.stack([chain.fk(v) for v in q])
+    jac_n = np.stack([chain.jacobian(v) for v in q])
+    fk_err = max(float(np.abs(r.double().cpu().numpy() - fk_n[:, :3, :3]).max()),
+                 float(np.abs(t.double().cpu().numpy() - fk_n[:, :3, 3]).max()))
+    jac_err = float(np.abs(jac.double().cpu().numpy() - jac_n).max())
+    check(fk_err <= NATIVE_TOL and jac_err <= NATIVE_TOL,
+          f"native FK / Jacobian differ from the card's by {fk_err} / "
+          f"{jac_err} (limit {NATIVE_TOL})")
+
+    rng = np.random.default_rng(7)  # benchmarks/bench_latency.py's seed
+    targets = [chain.fk(rng.uniform(lo, hi)) for _ in range(N_LATENCY)]
+    seeds = [rng.uniform(lo, hi) for _ in range(N_LATENCY)]
+    budget = dict(tol_f=cfg.tol_f, max_iters=cfg.max_iters,
+                  max_restarts=cfg.total_restarts)
+    chain.ik(targets[0], seeds[0], **budget)
+    robot.ik(cfg, targets[0], seeds[0])  # warm: plan, table upload
+    lat = {"native": [], "card": []}
+    ok = {"native": 0, "card": 0}
+    lm_kernel.LAUNCHES = 0
+    for tgt, x0 in zip(targets, seeds):
+        for side in ("native", "card"):
+            t0 = time.perf_counter()
+            out = chain.ik(tgt, x0, **budget) if side == "native" \
+                else robot.ik(cfg, tgt, x0)
+            lat[side].append(time.perf_counter() - t0)
+            if out is not None:
+                ok[side] += 1
+                x = np.asarray(out[0], np.float64)
+                err = float(np.abs(chain.fk(x) - tgt).max())
+                check(out[1] <= cfg.tol_f and err <= FK_TOL,
+                      f"scalar {side} IK: a found solution misses its target "
+                      f"(cost {out[1]}, FK err {err})")
+    launches["scalar Robot.ik"] = lm_kernel.LAUNCHES
+    check(launches["scalar Robot.ik"] == N_LATENCY,
+          f"scalar Robot.ik launched the kernel {lm_kernel.LAUNCHES} times "
+          f"in {N_LATENCY} solves")
+    p_nat, p_card = percentiles_us(lat["native"]), percentiles_us(lat["card"])
+    print(f"native binding vs the card @{N_NATIVE_KIN} configurations: FK "
+          f"within {fk_err:.3g}, Jacobian within {jac_err:.3g} (limit "
+          f"{NATIVE_TOL}); single-solve latency over {N_LATENCY} reachable "
+          f"poses (bench_latency's config): HostChain.ik p50 {p_nat[0]:.1f} "
+          f"/ p90 {p_nat[1]:.1f} us ({ok['native']} found; host CPU {cpu}), "
+          f"scalar Robot.ik on the card p50 {p_card[0]:.1f} / p90 "
+          f"{p_card[1]:.1f} us ({ok['card']} found, one launch each)",
+          flush=True)
+    paths.append({"name": "native latency", "poses": N_LATENCY,
+                  "host_cpu": cpu,
+                  "native_p50_us": p_nat[0], "native_p90_us": p_nat[1],
+                  "native_found": ok["native"],
+                  "card_scalar_p50_us": p_card[0],
+                  "card_scalar_p90_us": p_card[1],
+                  "card_scalar_found": ok["card"],
+                  "fk_err": fk_err, "jacobian_err": jac_err})
+
+    # 16b. parity_native at its full size.
+    lm_kernel.LAUNCHES = 0
+    summary, batches = parity_native.run(robot, chain, N_PARITY_NATIVE)
+    launches["parity_native"] = lm_kernel.LAUNCHES
+    check(launches["parity_native"] == len(batches),
+          f"parity_native launched the kernel {lm_kernel.LAUNCHES} times in "
+          f"{len(batches)} batches")
+    for b in batches:
+        check_solutions(robot, b.res, b.tgt_r, b.tgt_t, cfg.tol_f,
+                        "parity_native kernel column")
+    check(summary["kernel_success_rate"] >= 0.999,
+          f"parity_native kernel success {summary['kernel_success_rate']}")
+    print("parity_native @" + f"{N_PARITY_NATIVE} poses: kernel success "
+          f"{summary['kernel_success_rate']:.6f}, native "
+          f"{summary['native_success_rate']:.6f}; both fail "
+          f"{summary['both_fail']}, kernel only {summary['kernel_only_fail']}"
+          f", native only {summary['native_only_fail']}; wall: kernel "
+          f"{summary['kernel_wall_s']:.2f} s, native "
+          f"{summary['native_wall_s']:.2f} s", flush=True)
+    paths.append({"name": "parity_native", **summary,
+                  "launches": launches["parity_native"]})
+
+    # 16c. parity_hard's engine and native columns (the SLSQP column is
+    # CPU time and stays off the card's run).
+    cells = []
+    lm_kernel.LAUNCHES = 0
+    for line, results, (tgt_r, tgt_t, _), hrobot in parity_hard.run(
+            robot.device, N_HARD, scipy_column=False):
+        tr = torch.tensor(tgt_r, dtype=hrobot.dtype, device=hrobot.device)
+        tt = torch.tensor(tgt_t, dtype=hrobot.dtype, device=hrobot.device)
+        for col, res in results.items():
+            check_solutions(hrobot, res, tr, tt, cfg.tol_f,
+                            f"parity_hard {line['set']} {line['budget']} "
+                            f"{col}")
+        cells.append(line)
+        at32 = line["engine_success_iters32"]
+        print(f"parity_hard {line['set']} {line['budget']} @{N_HARD}: "
+              f"engine {line['engine_success']:.4f}"
+              + ("" if at32 is None else f" (@32 iterations {at32:.4f})")
+              + f", native {line['native_success']:.4f}; both fail "
+              f"{line['both_fail_engine_native']}, engine only "
+              f"{line['engine_only_fail_vs_native']}, native only "
+              f"{line['native_only_fail_vs_engine']}; wall engine "
+              f"{line['engine_wall_s']:.2f} s, native "
+              f"{line['native_wall_s']:.2f} s", flush=True)
+    launches["parity_hard"] = lm_kernel.LAUNCHES
+    check(len(cells) == 6 and launches["parity_hard"] == 9,
+          f"parity_hard ran {len(cells)} cells in {lm_kernel.LAUNCHES} "
+          "launches, expected 6 in 9")
+    strong = next(c for c in cells if c["set"] == "panda_uniform"
+                  and c["budget"] == "strong")
+    check(strong["engine_success"] >= 0.99, f"parity_hard panda_uniform "
+          f"strong engine success {strong['engine_success']} < 0.99")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 16 took {phase_s:.1f} s", flush=True)
+    paths.append({"name": "parity_hard", "poses": N_HARD, "cells": cells,
+                  "launches": launches["parity_hard"], "phase_s": phase_s})
+    return paths, launches
+
+
 def sharded_rank(cases, spec, timed_cases):
     """One rank of phases 15b-d, in a process of its own (launch.spawn).
 
@@ -956,9 +1134,10 @@ def main() -> int:
 
     from optik_tpu_torch import Robot, SolverConfig
     from optik_tpu_torch.benchmarks import (bench_fp32_peak, exp_bisect,
-                                            exp_warp_probe)
+                                            exp_warp_probe, parity_hard)
     from optik_tpu_torch.benchmarks.timing import card_line, event_ms
-    from optik_tpu_torch.models import asset_path
+    from optik_tpu_torch.models import ChainSpec, asset_path
+    from optik_tpu_torch.native import host as native_host
     from optik_tpu_torch.ops.cuda import build, lm_kernel
 
     # 1. The card.
@@ -981,23 +1160,38 @@ def main() -> int:
         "quality": (True, False, False, True),
         "quality uncontracted": (True, False, False, False),
     }
+    # The UR5 of phase 16's tight-limits set: another chain, so another
+    # library (its limits are run-time data); and the native host library.
+    ur5_plan = lm_kernel.KernelPlan(parity_hard.tight_ur5(
+        ChainSpec.from_urdf_file(asset_path(parity_hard.UR5[0]),
+                                 *parity_hard.UR5[1:])), cfg)
+
+    def gxx_build():
+        t = time.perf_counter()
+        path = native_host.build()
+        return path, time.perf_counter() - t
+
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+    with concurrent.futures.ThreadPoolExecutor(max_workers=10) as pool:
         jobs = {name: pool.submit(lm_kernel.load_library, plan.header, q, w,
                                   wide, fm)
                 for name, (q, w, wide, fm) in lm_variants.items()}
+        jobs["ur5 speed"] = pool.submit(lm_kernel.load_library,
+                                        ur5_plan.header)
         jobs["fp32_peak"] = pool.submit(bench_fp32_peak.load_library, True)
         jobs["fp32_peak uncontracted"] = pool.submit(
             bench_fp32_peak.load_library, False)
         jobs["warp_probe"] = pool.submit(exp_warp_probe.load_library)
+        native_job = pool.submit(gxx_build)
         libs = {name: job.result() for name, job in jobs.items()}
+        native_path, gxx_s = native_job.result()
     infos = {name: pair[1] for name, pair in libs.items()}
     build_wall_s = time.perf_counter() - t0
-    print(f"build: {len(infos)} libraries in {build_wall_s:.2f} "
-          f"s wall, the LM ones keyed by the chain's constants too (nvcc "
-          f"seconds: " + ", ".join(
-              f"{n} {i.seconds:.1f}" for n, i in infos.items()) + ")",
-          flush=True)
+    print(f"build: {len(infos)} CUDA libraries and the native host library "
+          f"in {build_wall_s:.2f} s wall, the LM ones keyed by the chain's "
+          f"constants too (nvcc seconds: " + ", ".join(
+              f"{n} {i.seconds:.1f}" for n, i in infos.items())
+          + f"; g++ {gxx_s:.1f} s for {native_path.name})", flush=True)
     registers, occupancy = {}, {}
     for name in lm_variants:
         rep = lm_kernel.library_report(*libs[name])
@@ -1256,6 +1450,43 @@ def main() -> int:
           f"uncontracted kernel bitwise equal to plain in every lane",
           flush=True)
 
+    # 9b. More seed lanes per pose than the kernel holds: Robot.ik_batch
+    # routes the config to the plain loop on the card (exact libm), and the
+    # port's own f64 plain loop on the host CPU is its comparison.
+    wide_cfg = SolverConfig.create("quality", **S128)
+    lm_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    wide_res = robot.ik_batch(wide_cfg, otr, ott, ox0)
+    torch.cuda.synchronize()
+    wide_s = time.perf_counter() - t0
+    wide_launches = lm_kernel.LAUNCHES
+    check(wide_launches == 0, f"S=128 launched the LM kernel {wide_launches} "
+          "times: the route is by config, to the plain loop")
+    check(wide_res.x.is_cuda and wide_res.found.is_cuda,
+          "S=128 did not run on the card")
+    wide_success = float(wide_res.found.float().mean())
+    check(wide_success >= 0.99, f"S=128 success {wide_success} < 0.99")
+    fk_wide = check_solutions(robot, wide_res, otr, ott, wide_cfg.tol_f,
+                              "S=128 plain loop on the card")
+    cpu64 = Robot(robot.spec, dtype=torch.float64, device="cpu")
+    t0 = time.perf_counter()
+    host_res = cpu64.ik_batch(wide_cfg, otr.cpu().double(),
+                              ott.cpu().double(), ox0.cpu().double())
+    host_s = time.perf_counter() - t0
+    wide_diff = int((wide_res.found.cpu() != host_res.found).sum())
+    check(wide_diff <= max(1, MASK_DIFF_FRAC * B_OPT),
+          f"S=128: found masks differ from the f64 host loop on {wide_diff} "
+          f"of {B_OPT} poses")
+    print(f"S=128 (Quality, 256 restarts, 128 lanes) @B={B_OPT} through "
+          f"Robot.ik_batch: the plain loop on the card, {wide_launches} kernel "
+          f"launches, success {wide_success:.6f}, FK err {fk_wide:.3g}, "
+          f"{wide_s:.2f} s; found mask differs from the f64 loop on the host "
+          f"CPU ({host_s:.2f} s) on {wide_diff} poses", flush=True)
+    wide_path = {"name": "S=128 plain loop on the card", "B": B_OPT,
+                 "config": S128, "launches": wide_launches,
+                 "success": wide_success, "mask_diff_vs_f64_host": wide_diff,
+                 "s": wide_s, "host_f64_s": host_s}
+
     # 10a. fp32_peak: comparisons first (at the timed shape and depth,
     # where contraction has drifted; at the timed shape after a few trips;
     # at the original's element count), then its entry point.
@@ -1426,6 +1657,11 @@ def main() -> int:
 
     # 12-14. Jacobians and differential IK (plain eager tensor operations).
     paths = diffik_phases(robot, Robot, event_ms)
+    paths.append(wide_path)
+
+    # 16. The native latency path and the success-parity harnesses.
+    native_paths, native_launches = native_phases(robot, cfg)
+    paths += native_paths
 
     # 15. The multi-device paths, last: their process groups and ranks come
     # after every single-device measurement.
@@ -1452,6 +1688,8 @@ def main() -> int:
          "unlimited_ms": u_s * 1e3, "unlimited_repeat_ms": u_warm_s * 1e3,
          "unlimited_late_round_ms": late_ms,
          "sharded_launches": shard_launches,
+         "s128_launches": wide_launches,
+         "phase16_launches": native_launches,
          "build_wall_s": build_wall_s},
         {"name": "fp32_peak", "route": "cuda",
          "source": "optik_tpu_torch/csrc/fp32_peak.cu",

@@ -8,4 +8,6 @@ package stays in the repository as the reference the port is held against
 from .config import SolutionMode, SolverConfig
 from .robot import Robot
 
-__all__ = ["Robot", "SolverConfig", "SolutionMode"]
+__version__ = "0.1.0"
+
+__all__ = ["Robot", "SolverConfig", "SolutionMode", "__version__"]

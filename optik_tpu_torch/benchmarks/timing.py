@@ -1,10 +1,14 @@
-"""What the measuring scripts share: the card's name and a CUDA-event timer."""
+"""What the measuring scripts share: the card's name, the host CPU's model
+and a CUDA-event timer."""
 
 from __future__ import annotations
 
+import os
 import subprocess
 
 import torch
+
+from ..native.host import cpu_model
 
 
 def card_line() -> str:
@@ -16,6 +20,12 @@ def card_line() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def host_cpu() -> str:
+    """The host CPU's model name and its logical core count: what a native
+    latency stands beside."""
+    return f"{cpu_model()}, {os.cpu_count()} logical cores"
 
 
 def event_ms(fn, reps: int) -> float:

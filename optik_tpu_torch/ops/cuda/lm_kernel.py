@@ -247,7 +247,8 @@ def padded_lanes(s: int) -> int:
             return cand
     raise NotImplementedError(
         f"seed lanes S={s} > {MAX_SEED_LANES}: the CUDA kernel holds a pose "
-        "in at most two warps (the JAX facade also leaves its kernel there)")
+        "in at most two warps (Robot.ik_batch runs such configs on the plain "
+        "loop, as the JAX facade leaves its kernel for XLA there)")
 
 
 def fp32_ops_per_lane_iter(plan: "KernelPlan", samples: int = 64) -> int:

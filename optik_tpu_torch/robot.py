@@ -17,8 +17,11 @@ CPU).  ``ik_batch`` on CUDA runs the hand-written LM kernel
 (``ops/cuda/lm_kernel.py``) in Speed and Quality mode, with per-axis
 weights, any ``seed_batch`` up to 64 lanes per pose and unlimited restart
 rounds (``max_restarts=0``); on the CPU it runs the plain torch loop
-(``solver/ik.build_batch_solver``).  More than 64 seed lanes per pose
-raises ``NotImplementedError`` on CUDA; nothing falls back quietly.
+(``solver/ik.build_batch_solver``).  A config with more than 64 seed lanes
+per pose (``min(seed_batch, total_restarts)``), which the kernel cannot
+hold, runs that plain loop on the card, as the JAX facade leaves its kernel
+for its XLA path there; the route is decided by config before anything is
+built, and no failure of the kernel turns into the plain loop.
 The Jacobians and differential IK are plain eager tensor operations on the
 Robot's device (no kernel of the JAX package lies on that path): the exact
 zonotope-gauge solve for 5 to 10 joints (``solver/gauge.py``), the ADMM
@@ -247,20 +250,30 @@ class Robot:
         return (res.x[0].double().cpu().tolist(), float(res.cost[0]))
 
     def _batch_solver(self, config: SolverConfig, ee_offset):
-        """The cached solver for (config, ee_offset) on this device."""
+        """The cached solver for (config, ee_offset) on this device:
+        ``(on_kernel, fn)``.
+
+        On CUDA the LM kernel, unless the config asks for more seed lanes
+        per pose than it holds (``lm_kernel.MAX_SEED_LANES``): then the
+        plain loop on the card, with exact libm sin/cos/atan2 as on the CPU
+        (``optik_tpu/robot.py:127-133`` routes such configs to XLA alike).
+        The kernel folds ``ee_offset`` in when it is built; the plain loop
+        takes it per call."""
         ee_key = None if ee_offset is None else tuple(
             np.asarray(v, np.float64).tobytes() for v in ee_offset)
         key = (config, ee_key)
-        fn = self._solvers.get(key)
-        if fn is None:
-            if self.device.type == "cuda":
-                fn = lm_kernel.build_kernel_solver(self.spec, config,
-                                                   ee_offset=ee_offset)
+        entry = self._solvers.get(key)
+        if entry is None:
+            lanes = min(config.seed_batch, config.total_restarts)
+            if (self.device.type == "cuda"
+                    and lanes <= lm_kernel.MAX_SEED_LANES):
+                entry = (True, lm_kernel.build_kernel_solver(
+                    self.spec, config, ee_offset=ee_offset))
             else:
-                fn = ik_mod.build_batch_solver(self.spec, config, self.dtype,
-                                               self.device)
-            self._solvers[key] = fn
-        return fn
+                entry = (False, ik_mod.build_batch_solver(
+                    self.spec, config, self.dtype, self.device))
+            self._solvers[key] = entry
+        return entry
 
     def _ik_batch_unlimited(self, config: SolverConfig, tgt_r, tgt_t, x0,
                             ee_offset, validate_seeds) -> ik_mod.IKResult:
@@ -326,7 +339,9 @@ class Robot:
         Seeds outside the joint limits raise, as in the scalar path;
         ``validate_seeds=False`` skips that check (for seeds in the limits
         by construction).  On CUDA this runs the LM kernel and raises
-        ``TypeError`` unless the Robot's dtype is float32.
+        ``TypeError`` unless the Robot's dtype is float32; a config with
+        more than 64 seed lanes per pose runs the plain loop on the card
+        (see :meth:`_batch_solver`).
         ``config.max_restarts == 0`` runs unlimited-restart rounds (see
         :meth:`_ik_batch_unlimited`), whose continuation rounds pass
         ``_restart_offset``.  The winner-selection key (``sel_key``) is
@@ -346,9 +361,9 @@ class Robot:
         tgt_r, tgt_t, x0 = self._tensor(tgt_r), self._tensor(tgt_t), \
             self._tensor(x0)
         ee_pair = None if ee_offset is None else _parse_pose(ee_offset)
-        fn = self._batch_solver(config, ee_pair)
+        on_kernel, fn = self._batch_solver(config, ee_pair)
         off = int(_restart_offset or 0)
-        if self.device.type == "cuda":
+        if on_kernel:
             res = fn(tgt_r, tgt_t, x0, restart_offset=off)
         else:
             ee_r = ee_t = None

@@ -124,9 +124,20 @@ def test_kernel_rejects_float64(robot):
     tr, tt, x0 = _problem(robot)
     with pytest.raises(TypeError, match="float32"):
         lm_kernel.solve_kernel(plan, tr.double(), tt.double(), x0.double())
-    with pytest.raises(NotImplementedError, match="S=128"):
-        robot.ik_batch(CFG.replace(max_restarts=256, seed_batch=128), tr, tt,
-                       x0)
+
+
+def test_more_than_64_lanes_run_the_plain_loop_on_the_card(robot):
+    """S = 128 is more than the kernel holds: the facade routes the config
+    to the plain loop on the card (no launch of the kernel) and solves."""
+    cfg = SolverConfig.create("quality", max_restarts=256, seed_batch=128,
+                              max_iters=32, tol_f=1e-6)
+    tr, tt, x0 = _problem(robot, seed=6)
+    lm_kernel.LAUNCHES = 0
+    res = robot.ik_batch(cfg, tr, tt, x0)
+    assert lm_kernel.LAUNCHES == 0
+    assert res.x.is_cuda and res.x.dtype == torch.float32
+    assert float(res.found.float().mean()) >= 0.99
+    assert bool((res.cost[res.found] <= cfg.tol_f).all())
 
 
 LANE_FIELDS = ("x", "f", "success", "restart_index", "succ_iters")

@@ -127,8 +127,9 @@ def test_device_defaults_and_unported_options(robots, monkeypatch):
     _, tr_ = robots
     assert tr_.num_positions() == 7
     tr_.set_parallelism(4)
-    # What still raises on CUDA: more than 64 seed lanes per pose (at plan
-    # build, before anything is launched) and any dtype but float32.
+    # lm_kernel.build_kernel_solver raises for more than 64 seed lanes per
+    # pose (at plan build, before anything is launched; the facade routes
+    # such configs to the plain loop instead) and for any dtype but float32.
     from optik_tpu_torch.ops.cuda import lm_kernel
 
     wide = optik_tpu_torch.SolverConfig(max_restarts=256, seed_batch=128)
@@ -146,6 +147,32 @@ def test_device_defaults_and_unported_options(robots, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         optik_tpu_torch.Robot(tr_.spec)
+
+
+@pytest.mark.parametrize("mode", ["speed", "quality"])
+def test_more_than_64_lanes_match_jax(robots, mode):
+    """S = 128 seed lanes per pose, more than the CUDA kernel holds: the
+    facade routes the config to the plain loop (on the card as here), and
+    the JAX facade to its XLA path.  At f64 on the CPU: found masks equal,
+    x within 1e-8 (as for the main config above)."""
+    jr, tr_ = robots
+    rng = np.random.default_rng(8)
+    lo, hi = jr.joint_limits()
+    n = 8
+    rot, trans = jr.fk_batch(rng.uniform(lo, hi, size=(n, 7)))
+    rot, trans = np.asarray(rot), np.asarray(trans)
+    x0 = rng.uniform(lo, hi, size=(n, 7))
+    kw = dict(max_restarts=256, seed_batch=128, max_iters=12, tol_f=1e-6)
+    ref = jr.ik_batch(optik_tpu.SolverConfig.create(mode, **kw), rot, trans,
+                      x0)
+    got = tr_.ik_batch(optik_tpu_torch.SolverConfig.create(mode, **kw), rot,
+                       trans, x0)
+    found = np.asarray(ref.found)
+    assert found.sum() >= n // 2
+    np.testing.assert_array_equal(got.found.numpy(), found)
+    np.testing.assert_allclose(got.x.numpy()[found], np.asarray(ref.x)[found],
+                               rtol=0, atol=1e-8)
+    assert np.all(got.cost.numpy()[found] <= kw["tol_f"])
 
 
 def test_unlimited_restarts_match_jax(robots):
@@ -260,6 +287,9 @@ def test_import_adds_no_jax_module():
             "import optik_tpu_torch.parallel.mesh\n"
             "from optik_tpu_torch.benchmarks import bench_fp32_peak, "
             "exp_warp_probe, exp_bisect\n"
+            "import optik_tpu_torch.native\n"
+            "from optik_tpu_torch.benchmarks import parity_native, "
+            "parity_hard, parity_scipy\n"
             "after = {m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optik_tpu')}\n"
             "print(sorted(after - before))\n")
@@ -287,7 +317,8 @@ def test_port_sources_import_no_jax():
     assert {"build.py", "bench_fp32_peak.py", "exp_warp_probe.py",
             "exp_bisect.py", "diffik.py", "gauge.py", "qp.py", "kinematics.py",
             "objective.py", "so3.py", "se3.py", "linalg.py", "launch.py",
-            "distributed.py", "mesh.py"} <= names
+            "distributed.py", "mesh.py", "host.py", "parity_native.py",
+            "parity_hard.py", "parity_scipy.py"} <= names
     for path in files:
         bad = {m for m in _imported_roots(path)
                if m in ("jax", "jaxlib", "optik_tpu")}
