@@ -9,9 +9,11 @@ Phases (each prints a line; any failed check exits non-zero):
      all started together: the LM kernel (optik_tpu_torch/csrc/lm_kernel.cu)
      with the Panda's chain compiled in, in Speed, Speed+weights, Speed with
      two-warp poses and Quality, contracted and uncontracted (--fmad=false),
-     the UR5's Speed library (phase 16's tight-limits set), the FP32
-     throughput probe and the primitive probes, and beside them the native
-     host library (optik_tpu_torch/native, g++); registers, spills,
+     Quality with two-warp poses (phase 17's capped rows), the UR5's Speed
+     library (phases 16 and 17) and the UR3e's (phase 17's bench_ops), the
+     FP32 throughput probe and the primitive probes, and beside them the
+     native host library and the C++ example (optik_tpu_torch/native,
+     examples/example.cpp, g++); registers, spills,
      block size and resident warps per SM of each, and the FP32 operations
      in the Speed kernel's SASS (which must hold no double-precision
      arithmetic: the chain's static terms fold at compile time);
@@ -103,6 +105,22 @@ Phases (each prints a line; any failed check exits non-zero):
      the engine at 32 iterations beside the weak budget), every found pose
      checked as in (b), strong-budget panda_uniform >= 0.99; the SLSQP
      column (CPU time) stays off the card's run; the phase's wall time;
+17. the benchmark harness (optik_tpu_torch/benchmarks/bench*.py), after 16
+     and before 15: (a) python3 -m optik_tpu_torch.benchmarks.bench in its
+     own process, as a benchmark cell runs it, at every default (B=131,072,
+     5 sets): its row names the card, success >= 0.99, every call a launch,
+     finite bound_ms, fp32_util and spread, printed beside phase 6's
+     solves/s (a difference above the spread is printed, not gated:
+     host-bound numbers move between calls); a profiler count of the
+     synchronisations in one pipelined pass of that shape (one); (b)
+     bench_workloads, bench_latency and bench_ops in this process at their
+     defaults and bench_scaling at n = 1 (an NCCL world of one rank, one
+     timed call per entry: the depth cut that keeps the script near 300 s):
+     every
+     row names the card and is printed, success >= 0.99 on the Quality,
+     capped Quality, UR5 and motion-planning rows, diff-IK ok rate >= 0.99,
+     each script launches the kernel; (c) example_cpp's 10,000 poses on the
+     host, its two lines beside the host CPU's model; the phase's wall time;
 15. the multi-device paths of optik_tpu_torch.parallel on
      the one card: (a) a real NCCL group of one rank, a (1, 1) mesh:
      build_seed_sharded_solver and build_sharded_cascade at the main
@@ -119,9 +137,9 @@ Phases (each prints a line; any failed check exits non-zero):
      unsharded plain loop, lane_iters equal.  Several ranks on one card
      prove the merge, not the scaling.  Phase 6 calls ik_batch in bench.py's
      form (validate_seeds=False, rescue_overflow=False; overflow_count 0).
-Then one JSON line with the diff-IK, S=128, native, parity and sharded
-paths, one with every kernel (lm_solve's launches on phases 9 and 16 among
-its fields) and, last, the result line.  Without a
+Then one JSON line with the diff-IK, S=128, native, parity, harness and
+sharded paths, one with every kernel (lm_solve's launches on phases 9, 16
+and 17 among its fields) and, last, the result line.  Without a
 card, or run from a directory that holds no checkout, it exits 2 and prints
 no result.
 """
@@ -158,6 +176,7 @@ NATIVE_TOL = 2e-5      # f32 on the card against the native f64
 FK_TOL = 2e-3         # cost <= 1e-6 is a pose residual of ~1e-3
 MASK_DIFF_FRAC = 1e-3  # marginal poses (cost within ~1e-7 of tol_f)
 LANE_FIELDS = ("x", "f", "success", "restart_index", "succ_iters")
+SCALING_ITERS = 1      # phase 17's bench_scaling depth (its default: 3)
 
 
 def fail(msg: str) -> None:
@@ -855,6 +874,187 @@ def native_phases(robot, cfg):
     return paths, launches
 
 
+def sync_count(fn):
+    """CUDA runtime synchronisations the profiler sees in one fn() beyond
+    those it sees around a single fetch of a device scalar (so 0 for a
+    function that synchronises once, whatever the profiler adds itself);
+    None where it records no CUDA runtime call at all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def count(f):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            f()
+        names = {ev.key: ev.count for ev in prof.key_averages()}
+        if not any(k.startswith("cuda") for k in names):
+            return None
+        return sum(n for k, n in names.items()
+                   if k.startswith("cuda") and "Synchronize" in k)
+
+    one = torch.ones((), device="cuda")
+    base, got = count(lambda: int(one + 1)), count(fn)
+    return None if base is None or got is None else got - base
+
+
+def harness_phase(device_name, card, main_rate, pipelined_pass):
+    """Phase 17: the benchmark harness (optik_tpu_torch/benchmarks/bench*.py)
+    on the card, and the C++ example on its host.  Returns the entry of the
+    ``paths`` line and the LM kernel's launches per script."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from optik_tpu_torch.benchmarks import (bench, bench_latency, bench_ops,
+                                            bench_scaling, bench_workloads)
+    from optik_tpu_torch.benchmarks.timing import host_cpu
+    from optik_tpu_torch.models import asset_path
+    from optik_tpu_torch.native import host as native_host
+    from optik_tpu_torch.ops.cuda import lm_kernel
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def names_the_card(row, what):
+        check(row.get("device") == device_name and row.get("card") == card,
+              f"{what}: the row names {row.get('device')!r} / "
+              f"{row.get('card')!r}, not the card")
+
+    # 17a. The north-star script as a benchmark cell runs it: its own
+    # process, every default, the libraries of phase 2 from the disk cache.
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "optik_tpu_torch.benchmarks.bench"], cwd=REPO,
+                         capture_output=True, text=True, timeout=900)
+    bench_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"bench exited {out.returncode}:\n"
+          f"{out.stderr[-4000:]}")
+    row = json.loads(out.stdout.strip().splitlines()[-1])
+    names_the_card(row, "bench")
+    want = bench.SETS * bench.ITERS * (2 + 3 * bench.PIPE_REPS)
+    check(row["metric"] == "panda_ik_solves_per_s"
+          and row["batch"] == bench.B and row["success_rate"] >= 0.99
+          and row["solver"] == "ik_batch/cuda-kernel"
+          and row["kernel_launches"] == want,
+          f"bench row: {row}")
+    check(all(math.isfinite(row[k]) for k in ("bound_ms", "fp32_util",
+                                                "spread", "value")),
+          f"bench row has a non-finite field: {row}")
+    launches["bench (its own process)"] = row["kernel_launches"]
+    diff = row["value"] / main_rate - 1.0
+    print(f"bench @B={row['batch']} (every default, {bench_s:.1f} s with "
+          f"start-up): {row['value']:.0f} solves/s pipelined, spread "
+          f"{row['spread']:.4f}, synced {row['synced_solves_per_s']:.0f}, "
+          f"success {row['success_rate']}, {row['lane_iters_per_solve']} "
+          f"lane-iterations per solve, fp32_util {row['fp32_util']:.4f}, "
+          f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} against "
+          f"{row['p50_pipelined_batch_ms']} ms per batch, "
+          f"{row['kernel_launches']} launches; phase 6 in this call: "
+          f"{main_rate:.0f} solves/s (synced, median of 5; bench's synced "
+          f"figure {100 * (row['synced_solves_per_s'] / main_rate - 1):+.1f}"
+          "% from it)"
+          + (f"; they differ by {100 * diff:+.1f}%, more than the spread"
+             if abs(diff) > row["spread"] else ""), flush=True)
+    print("harness row: " + json.dumps(row), flush=True)
+
+    # The pipelined pass synchronises once, at its fetch.
+    n_sync = sync_count(pipelined_pass)
+    check(n_sync is None or n_sync == 0, f"a pipelined pass of bench's "
+          f"shape synchronised {n_sync} times more than one fetch does")
+    print("pipelined pass (8 chained ik_batch calls, found_count added on "
+          "the device, one fetch): "
+          + ("the profiler saw no CUDA runtime call (not measured)"
+             if n_sync is None else f"{n_sync} synchronisations beyond "
+             "those of one scalar fetch"), flush=True)
+
+    # 17b. The other scripts in this process, at their defaults; scaling at
+    # n = 1 (one card) with one timed call per entry, not 3: its plain-loop
+    # entry, ik_sharded, takes ~9 s per call at B = 1,024.
+    rows = []
+    for name, fn in (("bench_workloads", lambda: bench_workloads.run()),
+                     ("bench_latency", lambda: bench_latency.run()),
+                     ("bench_ops", lambda: bench_ops.run()),
+                     ("bench_scaling", lambda: bench_scaling.run(
+                         max_ranks=1, iters=SCALING_ITERS))):
+        lm_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        got = fn()
+        launches[name] = lm_kernel.LAUNCHES
+        for r in got:
+            names_the_card(r, f"{name} {r['metric']}")
+            print("harness row: " + json.dumps(r), flush=True)
+        print(f"{name}: {len(got)} rows in {time.perf_counter() - t0:.1f} "
+              f"s, {launches[name]} launches here", flush=True)
+        rows += got
+    launches["bench_scaling (its rank)"] = sum(
+        r["kernel_launches"] for r in rows
+        if r["metric"].startswith("scaling_"))
+    check(all(launches[k] > 0 for k in ("bench_workloads", "bench_latency",
+                                        "bench_ops",
+                                        "bench_scaling (its rank)")),
+          f"a harness script did not launch the kernel: {launches}")
+    gated = ("panda_quality_256seed_solves_per_s",
+             "panda_quality_256seed_cap_solves_per_s",
+             "ur5_tight_limits_solves_per_s", "motion_planning_solves_per_s")
+    for r in rows:
+        if r["metric"] in gated:
+            check(r["success_rate"] >= 0.99, f"{r['metric']} success "
+                  f"{r['success_rate']} < 0.99")
+        if r["metric"] == "diff_ik_steps_per_s":
+            check(r["ok_rate"] >= 0.99, f"diff-IK ok rate {r['ok_rate']}")
+        if r["metric"] == "ik_b8_latency_split_ms":
+            check(r["inprogram_per_solve_ms"] is not None,
+                  "bench_latency measured no kernel time")
+
+    # bench_latency's in-program figure is CUDA events around 16 launches
+    # that the host issues one by one; the device's own share of it:
+    robot = bench.panda("cuda")
+    lo, hi = robot.joint_limits()
+    split = bench_latency.draws(np.random.default_rng(7), lo, hi,
+                                bench_latency.N_SCALAR)["split"]
+    tr, tt = robot.fk_batch(split[0])
+    x0 = torch.tensor(split[1], dtype=torch.float32, device="cuda")
+    plan = lm_kernel.KernelPlan(robot.spec, bench_latency.split_config())
+    tiled = bench_latency.tile(tr, tt, x0)
+    prof = profile_split(lambda: [lm_kernel.solve_kernel(plan, *tiled)
+                                  for _ in range(bench_latency.CHAIN)], 3)
+    in_prog = next(r["inprogram_per_solve_ms"] for r in rows
+                   if r["metric"] == "ik_b8_latency_split_ms")
+    device_ms = None
+    if prof is not None:
+        device_ms = sum(prof["kernels"].values()) / (3 * bench_latency.CHAIN)
+    print(f"bench_latency in-program: {in_prog} ms per solve by CUDA events "
+          f"around {bench_latency.CHAIN} launches at B = "
+          f"{bench_latency.TILE * bench_latency.B_SPLIT}, of which the device "
+          "is busy " + ("(not measured)" if device_ms is None
+                        else f"{device_ms:.4f} ms (profiler)"), flush=True)
+
+    # 17c. The C++ example on the host.
+    exe = native_host.build_example()
+    panda = asset_path("panda.urdf")
+    t0 = time.perf_counter()
+    ex = subprocess.run([str(exe), str(panda), "panda_link0",
+                         "panda_hand_tcp"], capture_output=True, text=True,
+                        timeout=600)
+    check(ex.returncode == 0, f"example_cpp exited {ex.returncode}: "
+          f"{ex.stderr}")
+    lines = ex.stdout.strip().splitlines()[-2:]
+    check(lines[0].startswith("Successes: ")
+          and lines[1].startswith("Average time per solve: "),
+          f"example_cpp printed {lines}")
+    cpu = host_cpu()
+    print(f"example_cpp ({time.perf_counter() - t0:.1f} s, host CPU "
+          f"{cpu}): {lines[0]} / {lines[1]}", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 17 took {phase_s:.1f} s", flush=True)
+    return ({"name": "benchmark harness", "bench": row, "rows": rows,
+             "pipelined_pass_syncs": n_sync,
+             "inprogram_device_ms_per_solve": device_ms,
+             "example_cpp": lines,
+             "host_cpu": cpu, "phase_s": phase_s}, launches)
+
+
 def sharded_rank(cases, spec, timed_cases):
     """One rank of phases 15b-d, in a process of its own (launch.spawn).
 
@@ -1086,7 +1286,8 @@ def sharded_phases(robot, cfg, qcfg, main_in, q_in, main_ref, q_ref):
           "on the whole batch")
     lock_out = ranks[0]["results"][k + 1][0]
     ref_lock = ik_mod.build_batch_solver(robot.spec, cfg, torch.float32,
-                                         "cuda")(*(t.cuda() for t in lock))
+                                         device="cuda")(
+        *(t.cuda() for t in lock))
     check(same_results(lock_out, ref_lock)
           and int(lock_out.lane_iters) == int(ref_lock.lane_iters),
           "gloo (1, 2) ik_sharded differs from the unsharded plain loop")
@@ -1133,8 +1334,9 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
 
     from optik_tpu_torch import Robot, SolverConfig
-    from optik_tpu_torch.benchmarks import (bench_fp32_peak, exp_bisect,
-                                            exp_warp_probe, parity_hard)
+    from optik_tpu_torch.benchmarks import (bench_fp32_peak, bench_ops,
+                                            exp_bisect, exp_warp_probe,
+                                            parity_hard)
     from optik_tpu_torch.benchmarks.timing import card_line, event_ms
     from optik_tpu_torch.models import ChainSpec, asset_path
     from optik_tpu_torch.native import host as native_host
@@ -1159,25 +1361,32 @@ def main() -> int:
         "speed wide uncontracted": (False, False, True, False),
         "quality": (True, False, False, True),
         "quality uncontracted": (True, False, False, False),
+        "quality wide": (True, False, True, True),
     }
     # The UR5 of phase 16's tight-limits set: another chain, so another
     # library (its limits are run-time data); and the native host library.
     ur5_plan = lm_kernel.KernelPlan(parity_hard.tight_ur5(
         ChainSpec.from_urdf_file(asset_path(parity_hard.UR5[0]),
                                  *parity_hard.UR5[1:])), cfg)
+    # bench_ops' UR3e (phase 17).
+    ur3e_plan = lm_kernel.KernelPlan(ChainSpec.from_urdf_file(
+        asset_path(bench_ops.UR3E[0]), *bench_ops.UR3E[1:]), cfg)
 
     def gxx_build():
         t = time.perf_counter()
         path = native_host.build()
+        native_host.build_example()
         return path, time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=10) as pool:
+    with concurrent.futures.ThreadPoolExecutor(max_workers=14) as pool:
         jobs = {name: pool.submit(lm_kernel.load_library, plan.header, q, w,
                                   wide, fm)
                 for name, (q, w, wide, fm) in lm_variants.items()}
         jobs["ur5 speed"] = pool.submit(lm_kernel.load_library,
                                         ur5_plan.header)
+        jobs["ur3e speed"] = pool.submit(lm_kernel.load_library,
+                                         ur3e_plan.header)
         jobs["fp32_peak"] = pool.submit(bench_fp32_peak.load_library, True)
         jobs["fp32_peak uncontracted"] = pool.submit(
             bench_fp32_peak.load_library, False)
@@ -1191,7 +1400,8 @@ def main() -> int:
           f"in {build_wall_s:.2f} s wall, the LM ones keyed by the chain's "
           f"constants too (nvcc seconds: " + ", ".join(
               f"{n} {i.seconds:.1f}" for n, i in infos.items())
-          + f"; g++ {gxx_s:.1f} s for {native_path.name})", flush=True)
+          + f"; g++ {gxx_s:.1f} s for {native_path.name} and "
+          "example_cpp)", flush=True)
     registers, occupancy = {}, {}
     for name in lm_variants:
         rep = lm_kernel.library_report(*libs[name])
@@ -1663,6 +1873,18 @@ def main() -> int:
     native_paths, native_launches = native_phases(robot, cfg)
     paths += native_paths
 
+    # 17. The benchmark harness, through the scripts a benchmark cell runs.
+    def pipelined_pass():
+        acc = None
+        for _ in range(8):
+            c = solve().found_count
+            acc = c if acc is None else acc + c
+        int(acc)
+
+    harness_path, harness_launches = harness_phase(
+        device_name, card, B_MAIN / main_s, pipelined_pass)
+    paths.append(harness_path)
+
     # 15. The multi-device paths, last: their process groups and ranks come
     # after every single-device measurement.
     shard_paths, shard_launches = sharded_phases(
@@ -1690,6 +1912,7 @@ def main() -> int:
          "sharded_launches": shard_launches,
          "s128_launches": wide_launches,
          "phase16_launches": native_launches,
+         "harness_launches": harness_launches,
          "build_wall_s": build_wall_s},
         {"name": "fp32_peak", "route": "cuda",
          "source": "optik_tpu_torch/csrc/fp32_peak.cu",

@@ -43,19 +43,12 @@ from .. import Robot, SolverConfig
 from ..models import asset_path
 from ..native import HostChain
 from ..solver.ik import IKResult
-from .timing import card_line, host_cpu
+from .timing import card_line, engine_dtype, host_cpu
 
 B = 16384
 N_BATCHES = 6
 CONFIG = dict(max_restarts=64, seed_batch=8, max_iters=32, tol_f=1e-6)
 PANDA = ("panda.urdf", "panda_link0", "panda_hand_tcp")
-
-
-def engine_dtype(device: torch.device) -> torch.dtype:
-    """The engine column's dtype: the kernel's float32 on the card, f64 on
-    the CPU (the JAX package's parity studies run f64 there)."""
-    return torch.float32 if torch.device(device).type == "cuda" \
-        else torch.float64
 
 
 def solver_name(robot: Robot) -> str:

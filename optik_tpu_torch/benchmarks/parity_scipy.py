@@ -61,7 +61,7 @@ def targets_f64(spec: ChainSpec, q: np.ndarray
 def objective(spec: ChainSpec):
     """``f_and_g(q, tgt_r, tgt_t) -> (cost, gradient)`` at f64 on the CPU,
     the engine's cost and closed-form gradient (numpy in, numpy out)."""
-    params = K.ChainParams.from_spec(spec, torch.float64, "cpu")
+    params = K.ChainParams.from_spec(spec, torch.float64, device="cpu")
 
     def f_and_g(q, tgt_r, tgt_t):
         r, j = O.residual_and_jacobian(

@@ -18,6 +18,11 @@ differs from the JAX binding's,
 and each binding loads its library with ``RTLD_LOCAL`` and binds symbols
 through its own handle, so one process can hold both.  Without g++ every
 entry point raises ``RuntimeError``; nothing stands in for the library.
+
+:func:`build_example` compiles the C++ consumer the same way:
+``optik_tpu_torch/examples/example.cpp`` against ``include/optik.hpp`` and
+the library, into ``build/optik_tpu_torch/example-<key>/example_cpp``
+(``native/CMakeLists.txt`` builds both with CMake).
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ SOURCE = _HERE / "optik_host.cpp"
 HEADERS = (_HERE / "include" / "optik_host.h", _HERE / "include" / "optik.hpp")
 FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 LIB_NAME = "liboptik_host_torch.so"
+EXAMPLE = _HERE.parent / "examples" / "example.cpp"
+EXAMPLE_FLAGS = ("-O3", "-march=native", "-std=c++17")
 BUILD_ROOT = _HERE.parents[1] / "build" / "optik_tpu_torch"
 _lock = threading.Lock()
 _lib = None
@@ -97,30 +104,61 @@ def library_path() -> pathlib.Path:
     return BUILD_ROOT / f"native-{digest.hexdigest()[:16]}" / LIB_NAME
 
 
+def _compile(source: pathlib.Path, out: pathlib.Path, before,
+             after=()) -> None:
+    """``g++ <before...> <source> -o <out> <after...>``, written through a
+    temporary file in ``out``'s directory and moved into place, the
+    command kept beside it in ``command.txt``."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found on PATH: {out.name} is compiled "
+                           f"from {source}")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        tmp_out = pathlib.Path(tmp) / out.name
+        cmd = [gxx, *before, str(source), "-o", str(tmp_out), *after]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed ({proc.returncode}) building "
+                               f"{source}:\n{proc.stderr}")
+        (pathlib.Path(tmp) / "command.txt").write_text(" ".join(cmd) + "\n")
+        os.replace(pathlib.Path(tmp) / "command.txt",
+                   out.parent / "command.txt")
+        os.replace(tmp_out, out)
+
+
 def build(force: bool = False) -> pathlib.Path:
     """Compile the library if it is not built yet; returns its path.
 
     The g++ command is kept beside the library in ``command.txt``."""
     lib_path = library_path()
-    if lib_path.exists() and not force:
-        return lib_path
-    gxx = shutil.which("g++")
-    if gxx is None:
-        raise RuntimeError("g++ not found on PATH: the native host runtime "
-                           f"is compiled from {SOURCE}")
-    out_dir = lib_path.parent
-    out_dir.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        tmp_lib = pathlib.Path(tmp) / LIB_NAME
-        cmd = [gxx, *FLAGS, str(SOURCE), "-o", str(tmp_lib)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed ({proc.returncode}) building "
-                               f"{SOURCE}:\n{proc.stderr}")
-        (pathlib.Path(tmp) / "command.txt").write_text(" ".join(cmd) + "\n")
-        os.replace(pathlib.Path(tmp) / "command.txt", out_dir / "command.txt")
-        os.replace(tmp_lib, lib_path)
+    if force or not lib_path.exists():
+        _compile(SOURCE, lib_path, FLAGS)
     return lib_path
+
+
+def example_path() -> pathlib.Path:
+    """Where ``example_cpp`` of this example source, linked against the
+    library of :func:`library_path`, lives."""
+    digest = hashlib.sha256(EXAMPLE.read_bytes())
+    digest.update(b"\0" + str(library_path()).encode() + b"\0"
+                  + "\0".join(EXAMPLE_FLAGS).encode())
+    return BUILD_ROOT / f"example-{digest.hexdigest()[:16]}" / "example_cpp"
+
+
+def build_example(force: bool = False) -> pathlib.Path:
+    """Compile ``examples/example.cpp`` (the 10,000-pose loop) with g++
+    against ``include/optik.hpp`` and the library (built first if needed);
+    returns the executable's path, written as the library is.
+
+        ./example_cpp <urdf> <base_link> <ee_link>
+    """
+    lib_path = build()
+    exe = example_path()
+    if force or not exe.exists():
+        _compile(EXAMPLE, exe, (*EXAMPLE_FLAGS, f"-I{HEADERS[0].parent}"),
+                 (str(lib_path), f"-Wl,-rpath,{lib_path.parent}"))
+    return exe
 
 
 def _load():

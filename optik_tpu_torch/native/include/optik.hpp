@@ -7,10 +7,10 @@
 // construction errors, bool + out-params for solver results (mirroring the
 // reference's DoIk/DoDiffIk contract).
 //
-// Link against liboptik_host (see optik_tpu/native/CMakeLists.txt);
-// examples/example.cpp is the reference example.  optik_tpu_torch/native
-// keeps its own copy of this header and of optik_host.h beside the copy of
-// the source.
+// Link against liboptik_host_torch (see optik_tpu_torch/native/
+// CMakeLists.txt); optik_tpu_torch/examples/example.cpp is the reference
+// example.  optik_tpu_torch/native keeps its own copy of this header and of
+// optik_host.h beside the copy of the source.
 
 #ifndef OPTIK_HPP_
 #define OPTIK_HPP_

@@ -44,8 +44,8 @@ class ChainParams(NamedTuple):
     tip_t: torch.Tensor      # (3,)
 
     @staticmethod
-    def from_spec(spec, dtype: torch.dtype = torch.float32,
-                  device: "str | torch.device" = "cpu") -> "ChainParams":
+    def from_spec(spec, dtype: torch.dtype = torch.float32, *,
+                  device: "str | torch.device") -> "ChainParams":
         def cast(a):
             return torch.as_tensor(np.asarray(a, dtype=np.float64)).to(
                 device=device, dtype=dtype)

@@ -244,6 +244,55 @@ def rodrigues(axis: Vec, angle, approx: bool = False) -> Mat:
     ]
 
 
+def mat_to_quat(r: Mat) -> Vec:
+    """Branchless Shepperd: the unit quaternion (x, y, z, w) of R."""
+    r00, r01, r02 = r[0]
+    r10, r11, r12 = r[1]
+    r20, r21, r22 = r[2]
+    tw = 1.0 + r00 + r11 + r22
+    tx = 1.0 + r00 - r11 - r22
+    ty = 1.0 - r00 + r11 - r22
+    tz = 1.0 - r00 - r11 + r22
+
+    def ss(v):
+        return torch.sqrt(v.clamp_min(1e-30))
+
+    sw, sx, sy, sz = ss(tw), ss(tx), ss(ty), ss(tz)
+    qw = [(r21 - r12) / sw, (r02 - r20) / sw, (r10 - r01) / sw, sw]
+    qx = [sx, (r01 + r10) / sx, (r02 + r20) / sx, (r21 - r12) / sx]
+    qy = [(r01 + r10) / sy, sy, (r12 + r21) / sy, (r02 - r20) / sy]
+    qz = [(r02 + r20) / sz, (r12 + r21) / sz, sz, (r10 - r01) / sz]
+
+    m_w = (tw >= tx) & (tw >= ty) & (tw >= tz)
+    m_x = (~m_w) & (tx >= ty) & (tx >= tz)
+    m_y = (~m_w) & (~m_x) & (ty >= tz)
+    q = [torch.where(m_w, qw[i], torch.where(m_x, qx[i], torch.where(
+        m_y, qy[i], qz[i]))) for i in range(4)]
+    norm = torch.sqrt(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3])
+    return [qi / norm for qi in q]
+
+
+def quat_log(q: Vec, approx: bool = False) -> Vec:
+    """Rotation-vector log of a unit quaternion (x, y, z, w), on the w >= 0
+    cover, with a Taylor series where |v|^2 <= EPSILON (the identity)."""
+    x, y, z, w = q
+    neg = w < 0.0
+    x, y, z, w = (torch.where(neg, -x, x), torch.where(neg, -y, y),
+                  torch.where(neg, -z, z), torch.where(neg, -w, w))
+    v2 = x * x + y * y + z * z
+    small = v2 <= EPSILON
+    vn = torch.sqrt(torch.where(small, 1.0, v2))
+    exact = atan2_nonneg(vn, w, approx) / vn
+    w3 = w * w * w
+    taylor = 1.0 / w - v2 / (3.0 * w3) + (v2 * v2) / (5.0 * w3 * w * w)
+    t = 2.0 * torch.where(small, taylor, exact)
+    return [x * t, y * t, z * t]
+
+
+def mat_log(r: Mat, approx: bool = False) -> Vec:
+    return quat_log(mat_to_quat(r), approx)
+
+
 def add_hat_terms(diag, w: Vec, c_hat, c_hat2) -> Mat:
     """diag*I + c_hat*[w]_x + c_hat2*[w]_x^2, expanded."""
     wx, wy, wz = w
@@ -313,6 +362,14 @@ def rot_log_terms(r: Mat, approx: bool = False):
     return w_log, (theta, theta * theta, sin_t, cos_t)
 
 
+def _trig_from_w(w: Vec, approx: bool = False):
+    """(theta, theta2, sin, cos) of a rotation vector's angle."""
+    theta2 = vec_dot(w, w)
+    theta = torch.sqrt(theta2)
+    s, c = sincos(theta, approx)
+    return theta, theta2, s, c
+
+
 def _hat_coeffs_trig(trig):
     """a = sin(t)/t, b = (1-cos t)/t^2, branchless, from shared trig."""
     theta, theta2, s, c = trig
@@ -336,6 +393,10 @@ def so3_right_jacobian_trig(w: Vec, trig) -> Mat:
     return add_hat_terms(1.0, w, 0.5, e)
 
 
+def so3_right_jacobian_from_w(w: Vec, approx: bool = False) -> Mat:
+    return so3_right_jacobian_trig(w, _trig_from_w(w, approx))
+
+
 # --- SE(3) ------------------------------------------------------------------
 
 
@@ -352,6 +413,16 @@ def se3_log_trig(w: Vec, t: Vec, trig) -> Vec:
     v_inv = add_hat_terms(1.0, w, -0.5, coef)
     v = mat_vec(v_inv, t)
     return v + list(w)
+
+
+def se3_log_from_w(w: Vec, t: Vec, approx: bool = False) -> Vec:
+    return se3_log_trig(w, t, _trig_from_w(w, approx))
+
+
+def se3_log(r: Mat, t: Vec, approx: bool = False) -> Vec:
+    """[v; w] = log of the rigid transform (R, t)."""
+    w, trig = rot_log_terms(r, approx)
+    return se3_log_trig(w, t, trig)
 
 
 def se3_right_jacobian_blocks_trig(w: Vec, t: Vec, trig):
@@ -388,6 +459,12 @@ def se3_right_jacobian_blocks_trig(w: Vec, t: Vec, trig):
     jr = so3_right_jacobian_trig(w, trig)
     q = mat_mul(C, jr)
     return jr, q
+
+
+def se3_right_jacobian_blocks(w: Vec, t: Vec, approx: bool = False):
+    """:func:`se3_right_jacobian_blocks_trig` with the angle's trig computed
+    from ``w`` itself."""
+    return se3_right_jacobian_blocks_trig(w, t, _trig_from_w(w, approx))
 
 
 # --- chain kinematics -------------------------------------------------------

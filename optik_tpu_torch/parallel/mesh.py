@@ -243,7 +243,7 @@ def ik_sharded(robot, cfg: SolverConfig, tgt_r, tgt_t, x0,
     fn = mesh.solvers.get(key)
     if fn is None:
         fn = mesh.solvers[key] = ik_mod.build_batch_solver(
-            robot.spec, cfg, robot.dtype, robot.device, mesh=mesh)
+            robot.spec, cfg, robot.dtype, device=robot.device, mesh=mesh)
     return fn(*_inputs(robot, tgt_r, tgt_t, x0))
 
 

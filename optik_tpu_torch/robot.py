@@ -148,7 +148,7 @@ class Robot:
         array path: ``ops/kinematics.py``, the ADMM diff-IK solve)."""
         if self._params is None:
             self._params = K.ChainParams.from_spec(self.spec, self.dtype,
-                                                   self.device)
+                                                   device=self.device)
         return self._params
 
     def _fk_soa(self, x: torch.Tensor, ee_offset):
@@ -271,7 +271,7 @@ class Robot:
                     self.spec, config, ee_offset=ee_offset))
             else:
                 entry = (False, ik_mod.build_batch_solver(
-                    self.spec, config, self.dtype, self.device))
+                    self.spec, config, self.dtype, device=self.device))
             self._solvers[key] = entry
         return entry
 

@@ -149,8 +149,8 @@ def chain_bounds(spec):
     return ([float(v) for v in spec.lower], [float(v) for v in spec.upper])
 
 
-def build_batch_solver(spec, cfg: SolverConfig, dtype=torch.float64,
-                       device="cpu", mesh=None):
+def build_batch_solver(spec, cfg: SolverConfig, dtype=torch.float64, *,
+                       device, mesh=None):
     """A batched IK solver for one robot+config on the plain torch loop.
 
     Returns ``fn(tgt_r (B,3,3), tgt_t (B,3), x0 (B,A) [, ee_r, ee_t,
@@ -172,6 +172,9 @@ def build_batch_solver(spec, cfg: SolverConfig, dtype=torch.float64,
     is merged over the seed group with the unsharded tie rules (the first
     minimal key in lane order).  Every rank returns the full (B, ...)
     result, equal to the unsharded solve's.
+
+    ``device`` has no default: the caller names where the loop runs, so a
+    harness that leaves it out fails instead of timing the host.
     """
     device = torch.device(device)
     consts = soa.chain_constants(spec)

@@ -615,6 +615,7 @@ def test_gloo_ranks_sharing_the_card(robot):
         assert _found_winners_equal(ranks[0][k][0], qref, qx0)
     assert _same(ranks[0][4][0], ref)
     plain = ik_mod.build_batch_solver(robot.spec, CFG, torch.float32,
-                                      "cuda")(*(t.cuda() for t in lock))
+                                      device="cuda")(
+        *(t.cuda() for t in lock))
     assert _same(ranks[0][5][0], plain)
     assert int(ranks[0][5][0].lane_iters) == int(plain.lane_iters)

@@ -52,7 +52,7 @@ def ee_pair():
 def test_chain_params_carry_across(model):
     jr, tr = robots(model)
     spec = ChainSpec.from_arrays(dataclasses.asdict(jr.spec))
-    params = K.ChainParams.from_spec(spec, torch.float64, "cpu")
+    params = K.ChainParams.from_spec(spec, torch.float64, device="cpu")
     assert params.num_positions == jr.num_positions()
     for name in params._fields:
         got = getattr(params, name)
@@ -60,7 +60,8 @@ def test_chain_params_carry_across(model):
         np.testing.assert_array_equal(got.numpy(),
                                       np.asarray(getattr(jr.params, name)))
         assert torch.equal(got, getattr(tr.params, name))
-    assert K.ChainParams.from_spec(spec).axis.dtype == torch.float32
+    default = K.ChainParams.from_spec(spec, device="cpu")
+    assert default.axis.dtype == torch.float32
 
 
 @pytest.mark.parametrize("ee", [False, True], ids=["tip", "ee_offset"])

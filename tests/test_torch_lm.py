@@ -89,7 +89,8 @@ def test_batch_solver_matches_jax_f64(panda, jax_sel_key, mode):
     ref = jax_ik.build_batch_solver(
         jr.spec, JaxConfig.create(mode, **kw), jnp.float64)(tr, tt, x0)
     got = ik.build_batch_solver(
-        spec, SolverConfig.create(mode, **kw), torch.float64)(tr, tt, x0)
+        spec, SolverConfig.create(mode, **kw), torch.float64,
+        device="cpu")(tr, tt, x0)
 
     found = np.asarray(ref.found)
     assert found.sum() >= B - 2  # the comparison exercises real solves

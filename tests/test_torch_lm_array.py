@@ -41,7 +41,7 @@ def panda():
     jr = JaxRobot.from_urdf_file(asset_path("panda.urdf"), "panda_link0",
                                  "panda_hand_tcp", dtype=jnp.float64)
     spec = ChainSpec.from_arrays(dataclasses.asdict(jr.spec))
-    return jr, spec, K.ChainParams.from_spec(spec, torch.float64)
+    return jr, spec, K.ChainParams.from_spec(spec, torch.float64, device="cpu")
 
 
 def _targets(jr, seed, b=B):
@@ -54,7 +54,8 @@ def _targets(jr, seed, b=B):
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_restart_seeds_and_bounds_are_jax_bitwise(panda, dtype):
     jr, spec, _ = panda
-    params = K.ChainParams.from_spec(spec, getattr(torch, dtype))
+    params = K.ChainParams.from_spec(spec, getattr(torch, dtype),
+                                     device="cpu")
     jparams = jr.params
     x0 = np.linspace(-0.5, 0.5, 7).astype(dtype)
     got = ik.restart_seeds(params, torch.tensor(x0), 42, 12)

@@ -10,13 +10,16 @@ built into a temporary directory here, so this file never writes
 ``optik_tpu/native/liboptik_host.so``, which tests/test_native.py builds in
 another process.  Tolerances: 1e-12 where the port's Robot runs the same
 f64 operations, 1e-5 on FK of an IK solution (a cost of 1e-10), bitwise
-between the bindings.  Skipped without ``g++``; a build takes about 13 s
-on an 8-core Xeon.
+between the bindings.  The C++ example (``examples/example.cpp``), built
+from each package's copy against its own library, prints the same
+successes.  Skipped without ``g++``; a build takes about 13 s on an 8-core
+Xeon.
 """
 
 import ctypes
 import pathlib
 import shutil
+import subprocess
 import threading
 import time
 
@@ -120,12 +123,45 @@ def test_concurrent_builds_never_expose_half_a_library(pair, tmp_path,
     assert lib.optik_host_num_positions is not None
 
 
-def test_no_toolchain_raises_runtime_error(tmp_path, monkeypatch):
+@pytest.mark.parametrize("entry", ["build", "build_example"])
+def test_no_toolchain_raises_runtime_error(tmp_path, monkeypatch, entry):
     monkeypatch.setattr(port_host, "BUILD_ROOT", tmp_path)
     monkeypatch.setattr(port_host.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
-        port_host.build()
+        getattr(port_host, entry)()
     assert not list(tmp_path.iterdir())
+
+
+def _run_example(exe):
+    out = subprocess.run([str(exe), *map(str, PANDA)], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return out.stdout.splitlines()[-2:]
+
+
+def test_example_cpp_matches_the_jax_packages(pair, jax_host, tmp_path):
+    """examples/example.cpp's 10,000-pose loop, built from the port's copy
+    against the port's library and from the JAX package's against its own:
+    the same successes (the host's restart stream is deterministic)."""
+    exe = port_host.build_example()
+    assert exe == port_host.example_path() and exe.name == "example_cpp"
+    assert exe.parent.parent == REPO / "build" / "optik_tpu_torch"
+    assert exe.parent.name.startswith("example-")
+    cmd = (exe.parent / "command.txt").read_text().split()
+    assert str(REPO / "optik_tpu_torch" / "examples" / "example.cpp") in cmd
+    assert str(port_host.library_path()) in cmd
+    jax_lib = pathlib.Path(jax_host._load()._name)
+    jax_exe = tmp_path / "example_cpp"
+    subprocess.run(
+        ["g++", "-O3", "-march=native", "-std=c++17",
+         f"-I{REPO / 'optik_tpu' / 'native' / 'include'}",
+         str(REPO / "examples" / "example.cpp"), "-o", str(jax_exe),
+         str(jax_lib), f"-Wl,-rpath,{jax_lib.parent}"],
+        check=True, capture_output=True, timeout=300)
+    mine, theirs = _run_example(exe), _run_example(jax_exe)
+    assert mine[0].startswith("Successes: ") and mine[0] == theirs[0]
+    assert mine[1].startswith("Average time per solve: ")
+    assert theirs[1].startswith("Average time per solve: ")
 
 
 # --- bitwise the JAX package's binding ----------------------------------------

@@ -255,7 +255,8 @@ def test_all_hard_batch_matches_single_shot():
                       dtype=torch.float32)
 
     def single_shot(c, r, t, x):
-        return ik.build_batch_solver(robot.spec, c, torch.float32)(r, t, x)
+        return ik.build_batch_solver(robot.spec, c, torch.float32,
+                                     device="cpu")(r, t, x)
 
     screen = single_shot(cfg.replace(max_restarts=8), rot, trans, x0).found
     full = single_shot(cfg, rot, trans, x0).found
@@ -290,6 +291,8 @@ def test_import_adds_no_jax_module():
             "import optik_tpu_torch.native\n"
             "from optik_tpu_torch.benchmarks import parity_native, "
             "parity_hard, parity_scipy\n"
+            "from optik_tpu_torch.benchmarks import bench, bench_workloads, "
+            "bench_latency, bench_scaling, bench_ops\n"
             "after = {m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optik_tpu')}\n"
             "print(sorted(after - before))\n")

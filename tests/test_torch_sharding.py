@@ -188,8 +188,8 @@ def test_ik_sharded_matches_the_unsharded_port(world, mode, shape):
     spec, *_ = world
     case = world[3][("lockstep", mode, shape)]
     got = _result(world, ("lockstep", mode, shape))[0]
-    ref = ik.build_batch_solver(spec, LOCK_CFG[mode], torch.float64)(
-        *case.inputs)
+    ref = ik.build_batch_solver(spec, LOCK_CFG[mode], torch.float64,
+                                device="cpu")(*case.inputs)
     assert torch.equal(got.found, ref.found)
     assert torch.equal(got.iters, ref.iters)
     torch.testing.assert_close(got.x, ref.x, rtol=0, atol=1e-12)
