@@ -1772,10 +1772,20 @@ def main() -> int:
     wp["fill"]["library_ms"] = sorted(lib_ms)[1]
     wp["fill"]["library_unprepared_ms"] = event_ms(
         lambda: each(exp_warp_probe.library_case, lib_cases), 20)
-    for side, fn in (("device_ms", fill), ("library_device_ms", lib_calls)):
+
+    def device_ms(fn):
         split = profile_split(fn, 20)
-        wp["fill"][side] = None if split is None else \
-            sum(split["kernels"].values()) / 20
+        return None if split is None else sum(split["kernels"].values()) / 20
+    wp["fill"]["device_ms"] = device_ms(fill)
+    wp["fill"]["library_device_ms"] = device_ms(lib_calls)
+    # The loops' entry carries the fill's fields: their kernels' device time
+    # through the same one C call, and no library side.
+    wp["loops"].update(
+        device_ms=device_ms(exp_warp_probe.prepare_many(loop_cases, "cuda")),
+        library_unprepared_ms=None, library_device_ms=None,
+        library_ms_reason="the cases are loops or a compare followed by a "
+        "cast: no single PyTorch call computes one "
+        "(exp_warp_probe.LIBRARY_CASES)")
 
     def dev_text(v):
         return "not measured" if v is None else f"{v:.4f} ms"
@@ -1788,9 +1798,10 @@ def main() -> int:
         + ", ".join(f"{v:.4f}" for v in fill_ms) + "; library "
         + ", ".join(f"{v:.4f}" for v in lib_ms) + "; not prepared, as "
         f"library_case makes them, {wp['fill']['library_unprepared_ms']:.4f})"
-        f"; device time alone (profiler, per turn of four): the fill kernels "
+        f"; device time alone (profiler, per turn): the four fill kernels "
         f"{dev_text(wp['fill']['device_ms'])}, the library's "
-        f"{dev_text(wp['fill']['library_device_ms'])}", flush=True)
+        f"{dev_text(wp['fill']['library_device_ms'])}, the three loop kernels "
+        f"{dev_text(wp['loops']['device_ms'])}", flush=True)
 
     # 10c. exp_bisect: each variant against plain, then its entry point.
     prob = exp_bisect.make_problem(robot.fk_batch, robot.spec, "cuda")

@@ -3,14 +3,22 @@
 ``ik_batch``) against the JAX package's, at f64 on shared numpy inputs.
 
 Limits: restart seeds and sampling bounds bitwise (the same threefry
-stream); found masks and iteration counts equal; x within 1e-8 and costs
-within 1e-12 (torch and XLA round a few operations differently and ~30
-accepted LM steps amplify that, as in tests/test_torch_lm.py).  Within the
-port, the SoA loop against this oracle with the limits of
-tests/test_soa.py (the two evaluate the cost by different formulas, so a
-borderline lane may part): success on >= 90% of lanes alike, x within 1e-5
-where both converged; the facade's Quality solve equals ``ik_one``'s
-within 1e-5.
+stream); found masks and iteration counts equal; x within 1e-8; costs of
+found lanes within 1e-12.  ``lm.solve``'s costs, held on every lane, the
+unconverged ones too, are within 1e-12 plus 1e-10 relative: torch and XLA
+round a few operations differently (the costs part in the last digits
+after one step), and 48 damped steps amplify that on a lane that does not
+converge.  XLA amplifies its own
+rounding alike: JAX alone gives costs 1.65e-13 apart for a broadcast (3, 3)
+target and the same target expanded to (8, 3, 3).  The port's cost on such
+a lane (f = 0.46) has been seen 2.3e-12 relative from JAX's, which an
+absolute 1e-12 held on one host and not on another.  A converged lane
+(f <= tol_f = 1e-6) keeps the 1e-12 absolute limit, since 1e-10 * f is
+below 1e-16 there.  Within the port, the SoA loop against this oracle with
+the limits of tests/test_soa.py (the two evaluate the cost by different
+formulas, so a borderline lane may part): success on >= 90% of lanes alike,
+x within 1e-5 where both converged; the facade's Quality solve equals
+``ik_one``'s within 1e-5.
 """
 
 import dataclasses
@@ -89,7 +97,7 @@ def test_lm_solve_matches_jax(panda, targets):
     assert got.iters == int(ref.iters)
     np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x), rtol=0,
                                atol=1e-8)
-    np.testing.assert_allclose(got.f.numpy(), np.asarray(ref.f), rtol=0,
+    np.testing.assert_allclose(got.f.numpy(), np.asarray(ref.f), rtol=1e-10,
                                atol=1e-12)
 
 
