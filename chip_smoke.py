@@ -10,7 +10,10 @@ Phases (each prints a line; any failed check exits non-zero):
      with the Panda's chain compiled in, in Speed, Speed+weights, Speed with
      two-warp poses and Quality, contracted and uncontracted (--fmad=false),
      Quality with two-warp poses (phase 17's capped rows), the UR5's Speed
-     library (phases 16 and 17) and the UR3e's (phase 17's bench_ops), the
+     library (phases 16 and 17) and the UR3e's (phase 17's bench_ops),
+     phase 18's chains (the mobile Panda in Speed, Speed+weights and
+     Quality, 16 joints and the widest chain the kernel takes in Speed,
+     each contracted and uncontracted; the widest first), the
      FP32 throughput probe and the primitive probes, and beside them the
      native host library and the C++ example (optik_tpu_torch/native,
      examples/example.cpp, g++); registers, spills,
@@ -55,6 +58,24 @@ Phases (each prints a line; any failed check exits non-zero):
      0.99, every found cost <= tol_f, FK of found x within 2e-3, found masks
      within 0.1% of the port's own f64 plain loop on the host CPU over the
      same inputs (a comparison, never a substitute);
+ 18. chains wider than the Panda, after 9 and before 10: (a) the main path
+     on the 11-joint mobile Panda (the repo's Panda on a holonomic base
+     with a lift, written by mobile_panda_urdf), Robot.from_urdf_str ->
+     fk_batch -> ik_batch in Speed at B=131,072 with the main config: one
+     launch per solve, success >= 0.99, every found cost <= tol_f, FK of
+     found x within 2e-3, solves/s, and on the same inputs the kernel
+     against its plain version as in phase 5; (b) its kernel against its
+     plain version at B=4096 in Speed, Speed with weights and Quality (256,
+     64, 48): uncontracted bitwise, contracted within the limits of phase
+     3, success within 0.001; (c) 16 joints and the widest chain the
+     kernel takes (lm_kernel.MAX_DOF), where the per-lane state spills, at
+     B=131,072: uncontracted bitwise, contracted within the limits of
+     phase 3; (d) a float64 Panda Robot through
+     ik_batch on the card: no launch (lm_kernel.kernel_runs routes it to
+     the plain loop), found masks within 0.1% of the host's f64 plain
+     loop.  Per DoF (7, 11, 16, widest): registers, spills, resident warps,
+     nvcc seconds, kernel and plain ms, lane-iterations per solve and the
+     bound; lm_solve's "wide" object in the kernels line holds them;
  10. the probes: fp32_peak (three bodies: uncontracted bitwise at full
      shape and depth, contracted within 1e-5 relative at 4 trips, then
      Gop/s), warp_probe (seven cases exact, the four that one PyTorch call
@@ -137,9 +158,10 @@ Phases (each prints a line; any failed check exits non-zero):
      unsharded plain loop, lane_iters equal.  Several ranks on one card
      prove the merge, not the scaling.  Phase 6 calls ik_batch in bench.py's
      form (validate_seeds=False, rescue_overflow=False; overflow_count 0).
-Then one JSON line with the diff-IK, S=128, native, parity, harness and
-sharded paths, one with every kernel (lm_solve's launches on phases 9, 16
-and 17 among its fields) and, last, the result line.  Without a
+Then one JSON line with the diff-IK, S=128, wide-chain, float64, native,
+parity, harness and sharded paths, one with every kernel (lm_solve's
+launches on phases 9, 16 and 17 among its fields) and, last, the result
+line.  Without a
 card, or run from a directory that holds no checkout, it exits 2 and prints
 no result.
 """
@@ -177,6 +199,11 @@ FK_TOL = 2e-3         # cost <= 1e-6 is a pose residual of ~1e-3
 MASK_DIFF_FRAC = 1e-3  # marginal poses (cost within ~1e-7 of tol_f)
 LANE_FIELDS = ("x", "f", "success", "restart_index", "succ_iters")
 SCALING_ITERS = 1      # phase 17's bench_scaling depth (its default: 3)
+# Phase 18's weighted case on the mobile Panda: every weight >= 1, so a
+# weighted cost <= tol_f bounds the pose error as the unweighted cost does
+# and phase 3's FK check holds as it stands.
+WIDE_WEIGHTS = dict(linear_weight=(1.0, 2.0, 1.5),
+                    angular_weight=(2.0, 1.0, 1.5))
 
 
 def fail(msg: str) -> None:
@@ -215,9 +242,9 @@ def problem(robot, b, seed):
 
     rng = np.random.default_rng(seed)
     lo, hi = robot.joint_limits()
-    tr, tt = robot.fk_batch(rng.uniform(lo, hi, size=(b, 7)))
-    x0 = torch.tensor(rng.uniform(lo, hi, size=(b, 7)), dtype=torch.float32,
-                      device="cuda")
+    tr, tt = robot.fk_batch(rng.uniform(lo, hi, size=(b, lo.shape[0])))
+    x0 = torch.tensor(rng.uniform(lo, hi, size=(b, lo.shape[0])),
+                      dtype=torch.float32, device="cuda")
     return tr, tt, x0
 
 
@@ -372,32 +399,6 @@ def bound(ops, nbytes):
     return roofline.bound_ms(ops, nbytes, torch.cuda.get_device_name(0))
 
 
-def planar_urdf(n=6):
-    """n revolute joints, all about z: the world Jacobian has rank <= 3
-    everywhere, which the facet enumeration cannot certify."""
-    links = "".join(f'<link name="l{i}"/>' for i in range(n + 1))
-    joints = "".join(
-        f'<joint name="j{i}" type="revolute">'
-        f'<parent link="l{i - 1}"/><child link="l{i}"/>'
-        f'<origin xyz="0.2 0 0" rpy="0 0 0"/><axis xyz="0 0 1"/>'
-        f'<limit lower="-3" upper="3" effort="1" velocity="1"/>'
-        f"</joint>" for i in range(1, n + 1))
-    return f'<robot name="planar{n}">{links}{joints}</robot>'
-
-
-def chain_urdf(n):
-    """Synthetic n-joint serial arm (alternating z / y axes)."""
-    links = "".join(f'<link name="l{i}"/>' for i in range(n + 1))
-    joints = "".join(
-        f'<joint name="j{i}" type="revolute">'
-        f'<parent link="l{i}"/><child link="l{i + 1}"/>'
-        f'<origin xyz="0.2 0 0.1" rpy="0 0 0"/>'
-        f'<axis xyz="{"0 0 1" if i % 2 == 0 else "0 1 0"}"/>'
-        f'<limit lower="-2.5" upper="2.5" effort="1" velocity="1"/>'
-        f"</joint>" for i in range(n))
-    return f'<robot name="syn{n}">{links}{joints}</robot>'
-
-
 def world_jacobian(robot, x):
     """J_W = blockdiag(R_WE) J_local of every configuration, in the
     robot's dtype on its device: (B, 6, A)."""
@@ -449,6 +450,7 @@ def diffik_phases(robot, Robot, event_ms):
     import torch
 
     from optik_tpu_torch.ops import kinematics
+    from optik_tpu_torch.models.synthetic import chain_urdf, planar_urdf
     from optik_tpu_torch.solver import diffik, gauge
 
     panda = robot.spec
@@ -1319,6 +1321,239 @@ def sharded_phases(robot, cfg, qcfg, main_in, q_in, main_ref, q_ref):
     return paths, launches
 
 
+def wide_robots(Robot):
+    """The chains of phase 18, keyed by DoF: the 11-joint mobile Panda, a
+    16-joint arm and the widest the kernel is built for."""
+    from optik_tpu_torch.models.synthetic import chain_urdf, mobile_panda_urdf
+    from optik_tpu_torch.ops.cuda import lm_kernel
+
+    top = lm_kernel.MAX_DOF
+    return {11: Robot.from_urdf_str(mobile_panda_urdf(), "mobile_base",
+                                    "panda_hand_tcp", device="cuda"),
+            16: Robot.from_urdf_str(chain_urdf(16), "l0", "l16",
+                                    device="cuda"),
+            top: Robot.from_urdf_str(chain_urdf(top), "l0", f"l{top}",
+                                     device="cuda")}
+
+
+def wide_variants(robots, cfg, qcfg):
+    """The LM libraries phase 18 launches, for phase 2's pool, the widest
+    chain first (its nvcc takes longest): {name: (header, quality,
+    weighted, wide, fmad)}."""
+    from optik_tpu_torch.ops.cuda import lm_kernel
+
+    out = {}
+    for a in sorted(robots, reverse=True):
+        header = lm_kernel.KernelPlan(robots[a].spec, cfg).header
+        for fmad in (True, False):
+            out[f"{a}-DoF speed{'' if fmad else ' uncontracted'}"] = (
+                header, False, False, False, fmad)
+        if a == 11:
+            plan_q = lm_kernel.KernelPlan(robots[a].spec, qcfg)
+            for fmad in (True, False):
+                tag = "" if fmad else " uncontracted"
+                out[f"11-DoF speed weighted{tag}"] = (header, False, True,
+                                                     False, fmad)
+                out[f"11-DoF quality{tag}"] = (header, True, False,
+                                              plan_q.wide(False), fmad)
+    return out
+
+
+def dof_line(a, row):
+    """Print one chain's row of phase 18's per-DoF table."""
+    print(f"  {a} DoF @B={row['B']}: {row['registers']} registers, "
+          f"{row['spill_bytes']} B spilled ({row['stack']} B stack), "
+          f"{row['warps_per_sm']} warps per SM, nvcc {row['nvcc_s']:.1f} s; "
+          f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms; "
+          f"{row['lane_iters_per_solve']:.1f} lane-iterations per solve x "
+          f"{row['fp32_ops_needed']} FP32 operations: bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+          f"({100 * row['bound_ms'] / row['ms']:.1f}% of the kernel's time)",
+          flush=True)
+
+
+def wide_phases(panda, robots, libs, cfg, qcfg, panda_row):
+    """Phase 18: chains wider than the Panda, and float64 on the card.
+
+    (a) the main path on the mobile Panda, Robot.from_urdf_str -> fk_batch
+    -> ik_batch in Speed at B = 131,072 with the main config: one launch per
+    solve, success, every found cost <= tol_f, FK of every found x within
+    2e-3; the kernel against its plain version there (uncontracted
+    bitwise, contracted within phase 3's limits), both timed, and the
+    lane-iterations the inputs need; (b) the mobile Panda's kernel against
+    its plain version at B = 4,096 in Speed, Speed with weights and Quality
+    (256, 64, 48): uncontracted bitwise, contracted within phase 3's limits,
+    success within 0.001; (c) as (a)'s checks and times for 16 joints and
+    the widest chain, where the per-lane state spills, at B = 131,072;
+    (d) a float64 Panda Robot through ik_batch on the card: no launch (the
+    plain loop, by lm_kernel.kernel_runs), found masks within 0.1% of the
+    host's f64 plain loop.  Per DoF (the Panda's row from phases 2 and 5)
+    registers, spills, resident warps, nvcc seconds, kernel and plain ms,
+    lane-iterations per solve and the bound.  ``panda`` is phase 6's
+    Robot.  Returns (paths, the lm_solve entry's "wide" object, whose
+    "launches" are (a)'s)."""
+    import torch
+
+    from optik_tpu_torch import Robot
+    from optik_tpu_torch.benchmarks.timing import event_ms
+    from optik_tpu_torch.ops.cuda import lm_kernel
+
+    t_phase = time.perf_counter()
+    mobile = robots[11]
+    rows = {"7": panda_row}
+    print("phase 18, per DoF (7: the Panda of phases 2 and 5):", flush=True)
+    dof_line(7, panda_row)
+
+    def dof_row(a, plan, b, tr, tt, x0, lanes_p, plain_ms):
+        """The kernel's row of one chain: its Speed library's report, the
+        solver build's time and the bound of the work these inputs need."""
+        rep = lm_kernel.library_report(*libs[f"{a}-DoF speed"])
+        ms = event_ms(lambda: lm_kernel.solve_kernel(plan, tr, tt, x0), 5)
+        needed = int(lanes_p.active_iters.sum())
+        ops = lm_kernel.fp32_ops_per_lane_iter(plan)
+        b_ms, b_by = bound(ops * needed, lm_bytes(a, b, plan.s, plan.r_total))
+        row = {"B": b, "registers": rep["registers"],
+               "spill_bytes": rep["spill_bytes"], "stack": rep["stack"],
+               "warps_per_sm": rep["warps_per_sm"], "nvcc_s": rep["nvcc_s"],
+               "ms": ms, "plain_ms": plain_ms,
+               "lane_iters_per_solve": needed / b, "fp32_ops_needed": ops,
+               "bound_ms": b_ms, "bound_by": b_by}
+        rows[str(a)] = row
+        dof_line(a, row)
+
+    def plain(plan, tr, tt, x0):
+        out = []
+        ms = 1e3 * timed(lambda: out.append(lm_kernel.solve_plain(
+            plan, tr, tt, x0, track_active=True)), 1)
+        return out[0], ms
+
+    def full_width_checks(robot, plan, tr, tt, x0, lanes_p, what):
+        """Phase 5's checks of one chain's Speed kernel at B_MAIN: the
+        uncontracted build bitwise, the solver's build within phase 3's
+        limits; returns the pose difference on shared winners."""
+        lanes_equal(lm_kernel.solve_kernel(plan, tr, tt, x0, fmad=False),
+                    lanes_p, f"{what} @B={B_MAIN}")
+        print(f"{what}: uncontracted kernel vs plain @B={B_MAIN}: every "
+              "lane's x, f, success, restart index and iterations bitwise "
+              "equal", flush=True)
+        _, err = compare_contracted(robot, lm_kernel, plan, tr, tt, x0,
+                                    lanes_p, what)
+        return err
+
+    # (a) The main path on the mobile Panda, through the entry points.
+    tr, tt, x0 = problem(mobile, B_MAIN, seed=18)
+
+    def solve():
+        return mobile.ik_batch(cfg, tr, tt, x0, validate_seeds=False,
+                               rescue_overflow=False)
+
+    solve()  # warm: solver build and seed-table upload
+    lm_kernel.LAUNCHES = 0
+    runs, results = 5, []
+    main_s = timed(lambda: results.append(solve()), runs)
+    launches = lm_kernel.LAUNCHES
+    check(launches == runs, f"the mobile Panda's main path launched the "
+          f"kernel {launches} times in {runs} solves")
+    res = results[-1]
+    success = float(res.found.float().mean())
+    check(success >= 0.99, f"mobile Panda main-path success {success} < 0.99")
+    fk_err = check_solutions(mobile, res, tr, tt, cfg.tol_f,
+                             "mobile Panda main path")
+    print(f"mobile Panda (11 DoF) main path @B={B_MAIN}: success "
+          f"{success:.6f}, {B_MAIN / main_s:.0f} solves/s (median of {runs}, "
+          f"{main_s * 1e3:.2f} ms/batch), "
+          f"{int(res.lane_iters) / B_MAIN:.1f} lane-iters/solve run, FK err "
+          f"{fk_err:.3g}, launches {launches}", flush=True)
+    plan = lm_kernel.KernelPlan(mobile.spec, cfg)
+    lanes_p, plain_ms = plain(plan, tr, tt, x0)
+    max_err = full_width_checks(mobile, plan, tr, tt, x0, lanes_p,
+                                "mobile Panda main config")
+    dof_row(11, plan, B_MAIN, tr, tt, x0, lanes_p, plain_ms)
+    del lanes_p
+    main_path = {"name": "mobile Panda 11-DoF ik_batch", "B": B_MAIN,
+                 "config": MAIN, "launches": launches, "success": success,
+                 "solves_per_s": B_MAIN / main_s, "fk_err": fk_err}
+
+    # (b) Kernel against plain on the mobile Panda at B_CHECK.
+    wtr, wtt, wx0 = problem(mobile, B_CHECK, seed=19)
+    checks = {}
+    for name, c in (("Speed", cfg), ("Speed weighted",
+                                     cfg.replace(**WIDE_WEIGHTS)),
+                    ("Quality (256, 64)", qcfg)):
+        what = f"mobile Panda {name}"
+        cplan = lm_kernel.KernelPlan(mobile.spec, c)
+        lanes_p = lm_kernel.solve_plain(cplan, wtr, wtt, wx0)
+        lanes_equal(lm_kernel.solve_kernel(cplan, wtr, wtt, wx0, fmad=False),
+                    lanes_p, what)
+        k, err = compare_contracted(mobile, lm_kernel, cplan, wtr, wtt, wx0,
+                                    lanes_p, what)
+        p_rate = float(lm_kernel.select(cplan, lanes_p, wx0).found.float()
+                       .mean())
+        k_rate = float(k.found.float().mean())
+        check(abs(k_rate - p_rate) <= 1e-3, f"{what}: kernel success "
+              f"{k_rate} against plain {p_rate}")
+        max_err = max(max_err, err)
+        checks[name] = {"success": k_rate, "plain_success": p_rate,
+                        "pose_err": err}
+    print(f"mobile Panda @B={B_CHECK}: Speed, Speed with weights and Quality "
+          f"(256, 64, 48) uncontracted bitwise equal to plain in every lane, "
+          f"contracted within phase 3's limits, success within 0.001 of "
+          f"plain: " + ", ".join(f"{n} {v['success']:.6f} / "
+                                 f"{v['plain_success']:.6f}"
+                                 for n, v in checks.items()), flush=True)
+
+    # (c) Where the per-lane state spills: 16 joints, and the widest chain,
+    # at the main shape (a full card, as the mobile Panda's row).
+    for a in (16, max(robots)):
+        robot = robots[a]
+        ctr, ctt, cx0 = problem(robot, B_MAIN, seed=20 + a)
+        cplan = lm_kernel.KernelPlan(robot.spec, cfg)
+        lanes_p, c_plain_ms = plain(cplan, ctr, ctt, cx0)
+        max_err = max(max_err, full_width_checks(
+            robot, cplan, ctr, ctt, cx0, lanes_p, f"{a} DoF main config"))
+        dof_row(a, cplan, B_MAIN, ctr, ctt, cx0, lanes_p, c_plain_ms)
+        del lanes_p
+
+    # (d) float64 on the card: the plain loop, by config.
+    panda64 = Robot(panda.spec, dtype=torch.float64, device="cuda")
+    ftr, ftt, fx0 = (v.double() for v in problem(panda, B_OPT, seed=4))
+    lm_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    f64 = panda64.ik_batch(cfg, ftr, ftt, fx0)
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t0
+    f64_launches = lm_kernel.LAUNCHES
+    check(f64_launches == 0, f"the float64 Robot launched the LM kernel "
+          f"{f64_launches} times: the route is by config, to the plain loop")
+    check(f64.x.is_cuda and f64.x.dtype == torch.float64,
+          "the float64 solve did not run in float64 on the card")
+    f64_success = float(f64.found.float().mean())
+    check_solutions(panda64, f64, ftr, ftt, cfg.tol_f, "float64 on the card")
+    host = Robot(panda.spec, dtype=torch.float64, device="cpu")
+    t0 = time.perf_counter()
+    host_res = host.ik_batch(cfg, ftr.cpu(), ftt.cpu(), fx0.cpu())
+    host_s = time.perf_counter() - t0
+    f64_diff = int((f64.found.cpu() != host_res.found).sum())
+    check(f64_diff <= max(1, MASK_DIFF_FRAC * B_OPT),
+          f"float64: found masks differ from the host's f64 loop on "
+          f"{f64_diff} of {B_OPT} poses")
+    print(f"float64 Panda Robot @B={B_OPT} through Robot.ik_batch: the plain "
+          f"loop on the card, {f64_launches} kernel launches, success "
+          f"{f64_success:.6f}, {f64_s:.2f} s; found mask differs from the "
+          f"f64 loop on the host CPU ({host_s:.2f} s) on {f64_diff} poses",
+          flush=True)
+    f64_path = {"name": "float64 plain loop on the card", "B": B_OPT,
+                "config": MAIN, "launches": f64_launches,
+                "success": f64_success, "mask_diff_vs_f64_host": f64_diff,
+                "s": f64_s, "host_f64_s": host_s}
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 18 took {phase_s:.1f} s", flush=True)
+    wide = {"dof": rows, "launches": launches, "max_abs_err": max_err,
+            "mobile_panda": dict(main_path, checks=checks),
+            "float64_launches": f64_launches, "phase_s": phase_s}
+    return [main_path, f64_path], wide
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1353,7 +1588,10 @@ def main() -> int:
     robot = Robot.from_urdf_file(asset_path("panda.urdf"), "panda_link0",
                                  "panda_hand_tcp", device="cuda")
     cfg = SolverConfig(**MAIN)
+    qcfg = SolverConfig.create("quality", **QUALITY)
     plan = lm_kernel.KernelPlan(robot.spec, cfg)
+    # Phase 18's chains: the mobile Panda, 16 joints and the widest.
+    wrobots = wide_robots(Robot)
     lm_variants = {
         "speed": (False, False, False, True),
         "speed uncontracted": (False, False, False, False),
@@ -1379,10 +1617,12 @@ def main() -> int:
         return path, time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=14) as pool:
-        jobs = {name: pool.submit(lm_kernel.load_library, plan.header, q, w,
-                                  wide, fm)
-                for name, (q, w, wide, fm) in lm_variants.items()}
+    with concurrent.futures.ThreadPoolExecutor(max_workers=24) as pool:
+        jobs = {name: pool.submit(lm_kernel.load_library, *args)
+                for name, args in wide_variants(wrobots, cfg, qcfg).items()}
+        jobs.update({name: pool.submit(lm_kernel.load_library, plan.header, q,
+                                       w, wide, fm)
+                     for name, (q, w, wide, fm) in lm_variants.items()})
         jobs["ur5 speed"] = pool.submit(lm_kernel.load_library,
                                         ur5_plan.header)
         jobs["ur3e speed"] = pool.submit(lm_kernel.load_library,
@@ -1547,7 +1787,6 @@ def main() -> int:
 
     # 7. Quality at full width through the facade, then kernel against
     # plain on the same inputs.
-    qcfg = SolverConfig.create("quality", **QUALITY)
     qplan = lm_kernel.KernelPlan(robot.spec, qcfg)
     qtr, qtt, qx0 = problem(robot, B_QUALITY, seed=3)
 
@@ -1696,6 +1935,19 @@ def main() -> int:
                  "config": S128, "launches": wide_launches,
                  "success": wide_success, "mask_diff_vs_f64_host": wide_diff,
                  "s": wide_s, "host_f64_s": host_s}
+
+    # 18. Chains wider than the Panda, and float64 on the card.
+    speed_rep = lm_kernel.library_report(*libs["speed"])
+    panda_row = {"B": B_MAIN, "registers": speed_rep["registers"],
+                 "spill_bytes": speed_rep["spill_bytes"],
+                 "stack": speed_rep["stack"],
+                 "warps_per_sm": speed_rep["warps_per_sm"],
+                 "nvcc_s": speed_rep["nvcc_s"], "ms": kernel_ms,
+                 "plain_ms": plain_ms, "lane_iters_per_solve": needed / B_MAIN,
+                 "fp32_ops_needed": ops_iter, "bound_ms": lm_bound_ms,
+                 "bound_by": lm_bound_by}
+    dof_paths, dof_entry = wide_phases(robot, wrobots, libs, cfg, qcfg,
+                                       panda_row)
 
     # 10a. fp32_peak: comparisons first (at the timed shape and depth,
     # where contraction has drifted; at the timed shape after a few trips;
@@ -1879,6 +2131,7 @@ def main() -> int:
     # 12-14. Jacobians and differential IK (plain eager tensor operations).
     paths = diffik_phases(robot, Robot, event_ms)
     paths.append(wide_path)
+    paths += dof_paths
 
     # 16. The native latency path and the success-parity harnesses.
     native_paths, native_launches = native_phases(robot, cfg)
@@ -1924,7 +2177,7 @@ def main() -> int:
          "s128_launches": wide_launches,
          "phase16_launches": native_launches,
          "harness_launches": harness_launches,
-         "build_wall_s": build_wall_s},
+         "build_wall_s": build_wall_s, "wide": dof_entry},
         {"name": "fp32_peak", "route": "cuda",
          "source": "optik_tpu_torch/csrc/fp32_peak.cu",
          "replaces": "benchmarks/bench_vpu_peak.py:73",

@@ -107,8 +107,17 @@ constexpr bool kHasTip = optik_chain::kHasTip;
 constexpr bool kQuality = OPTIK_QUALITY != 0;
 constexpr bool kWeighted = OPTIK_WEIGHTED != 0;
 constexpr bool kWide = OPTIK_WIDE != 0;
-constexpr int kMaxDof = 10;
-static_assert(kDof >= 1 && kDof <= kMaxDof, "the chain must have 1..10 joints");
+// The widest chain a library is built for (lm_kernel.py:MAX_DOF).  Every
+// per-lane vector is kDof long, so nothing else in the kernel changes with
+// the width; what grows is nvcc's time (the joints are a template
+// recursion that rebuilds the tuple of their frames at every joint) and the
+// per-lane state (x, the step, and the carried and trial Jacobians, each
+// 6 x kDof), which spills to local memory once it outgrows the 255
+// registers of a thread.  Registers, spills and nvcc seconds per DoF are
+// in PERF.md.  optik_lm_variant() holds kDof in its low 8 bits.
+constexpr int kMaxDof = 32;
+static_assert(kDof >= 1 && kDof <= kMaxDof, "the chain must have 1..32 joints");
+static_assert(kMaxDof < 256, "optik_lm_variant() holds kDof in 8 bits");
 constexpr int kNumOpts = 19;
 // A block is one pair of warps, the most threads one pose can take:
 // registers are granted per warp, so the smallest block wastes none.

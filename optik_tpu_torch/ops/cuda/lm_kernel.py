@@ -9,18 +9,22 @@ binds its plain C entry point with ``ctypes``, lays out the inputs, launches
 it, and picks each pose's winner in torch, as the JAX package does outside
 its Pallas kernel (``lm_kernel.py:345-377``).
 
-Dispatch is by device: :func:`solve_lanes` sends a CPU tensor to
-:func:`solve_plain` (the same function through
-:func:`optik_tpu_torch.solver.lm_soa.lm_loop` in kernel math mode) and a
-CUDA tensor to :func:`solve_kernel`, which launches the kernel or raises.
-Nothing falls back.
+Dispatch is by one predicate, :func:`kernel_runs`, decided before anything
+is built: :func:`solve_lanes` sends what it accepts (CUDA, float32, at most
+64 seed lanes per pose, 1..32 joints) to :func:`solve_kernel`, which
+launches the kernel or raises, and everything else to :func:`solve_plain`
+(the same function through :func:`optik_tpu_torch.solver.lm_soa.lm_loop` in
+kernel math mode, on the tensors' device): the CPU, a float64 solve (the
+JAX facade solves float64 through XLA, not its kernel), a chain wider than
+the libraries are built for.  No failure of a build or a launch turns into
+the plain version.
 
 Scope: everything the Pallas kernel runs.  Speed and Quality mode (best
 success by distance to the caller's seed, ``quality_max_successes`` cap),
 with and without reseeding, per-axis weights, ``restart_offset`` and
 ``lane0_stream`` (both on the host: they only change the seed table and the
 start points), a constant ``ee_offset`` folded into the chain tip, any
-S = min(seed_batch, total_restarts) from 1 to 64, DoF 1..10, float32.  One
+S = min(seed_batch, total_restarts) from 1 to 64, DoF 1..32, float32.  One
 library holds one instantiation (robot chain, mode, weighted, two-warp
 poses, contraction) and is built when a solve first needs it; joint limits,
 the tip and every option are run-time, so a new ``ee_offset`` or config
@@ -48,7 +52,11 @@ from . import build
 LAUNCHES = 0
 
 SOURCE = build.CSRC / "lm_kernel.cu"
-MAX_DOF = 10
+# The widest chain the kernel is built for (csrc/lm_kernel.cu: kMaxDof).
+# The Pallas kernel has no such cap; nvcc's time and the per-lane state,
+# which spills to local memory, grow with the DoF (PERF.md), so wider
+# chains run the plain version (kernel_runs).
+MAX_DOF = 32
 MAX_SEED_LANES = 64
 _NUM_OPTS = 19
 CHAIN_HEADER = "optik_chain.h"
@@ -302,13 +310,30 @@ def fp32_ops_per_lane_iter(plan: "KernelPlan", samples: int = 64) -> int:
     return traced + dense
 
 
-def check_supported(spec, cfg: SolverConfig) -> None:
-    """Raise for what the CUDA kernel does not run."""
-    padded_lanes(min(cfg.seed_batch, cfg.total_restarts))
+def check_supported(spec) -> None:
+    """Raise for a chain the CUDA kernel is not built for (more seed lanes
+    than it holds raise in :func:`padded_lanes`, when a plan is made)."""
     if not 1 <= spec.num_positions <= MAX_DOF:
         raise ValueError(
             f"the CUDA kernel is built for 1..{MAX_DOF} DoF, got "
             f"{spec.num_positions}")
+
+
+def kernel_runs(spec, cfg: SolverConfig, dtype: torch.dtype,
+                device: "str | torch.device") -> bool:
+    """Whether a solve of ``spec`` under ``cfg`` at ``dtype`` on ``device``
+    runs the CUDA kernel: a CUDA device, float32, at most
+    ``MAX_SEED_LANES`` seed lanes per pose and 1..``MAX_DOF`` joints.
+
+    The one routing rule of the LM solve (:func:`solve_lanes`,
+    ``Robot.ik_batch``, the seed-sharded solver): what it refuses runs the
+    plain loop on the same device, as the JAX facade leaves its kernel
+    for XLA (``optik_tpu/robot.py:90-157``).  It is decided from the
+    config before anything is built.
+    """
+    return (torch.device(device).type == "cuda" and dtype == torch.float32
+            and min(cfg.seed_batch, cfg.total_restarts) <= MAX_SEED_LANES
+            and 1 <= spec.num_positions <= MAX_DOF)
 
 
 class KernelPlan:
@@ -322,7 +347,7 @@ class KernelPlan:
     """
 
     def __init__(self, spec, cfg: SolverConfig, ee_offset=None):
-        check_supported(spec, cfg)
+        self.s_pad = padded_lanes(min(cfg.seed_batch, cfg.total_restarts))
         self.cfg = cfg
         self.spec = spec
         consts = soa.chain_constants(spec)
@@ -334,7 +359,6 @@ class KernelPlan:
         self.opts = ik_mod.options_from_config(cfg)
         self.r_total = cfg.total_restarts
         self.s = min(cfg.seed_batch, self.r_total)
-        self.s_pad = padded_lanes(self.s)
         self.reseed = self.r_total > self.s
         self.quality = cfg.solution_mode == SolutionMode.QUALITY
         # Speed freezes a pose at its first success; Quality never does.
@@ -360,20 +384,26 @@ class KernelPlan:
 
     def library(self, freeze: bool, fmad: bool = True):
         """The kernel library a launch of this plan uses:
-        ``(CDLL, build.BuildInfo)``, built at first use."""
+        ``(CDLL, build.BuildInfo)``, built at first use.  Raises for a
+        chain the kernel is not built for (:func:`check_supported`)."""
+        check_supported(self.spec)
         return load_library(self.header, self.quality, self.weighted,
                             self.wide(freeze), fmad)
 
-    def table(self, device: torch.device, off: int = 0) -> torch.Tensor:
-        """The (R, A) float32 seed table on ``device``: row i is the draw
-        for restart index ``i + off`` (made and uploaded once per ``off``)."""
-        key = (device, int(off))
+    def table(self, device: torch.device, off: int = 0,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """The (R, A) seed table on ``device``: row i is the draw for
+        restart index ``i + off`` (made and uploaded once per ``off``).
+        The kernel reads float32; a float64 plain solve draws at float64,
+        as the JAX kernel and the port's plain loop draw at their dtype."""
+        key = (device, int(off), dtype)
         t = self._tables.get(key)
         if t is None:
+            np_dtype = np.float64 if dtype == torch.float64 else np.float32
             host = rnd.seed_table(self.cfg.rng_seed, self.r_total,
                                   self.spec.lower, self.spec.upper,
-                                  np.float32, off=int(off))
-            t = torch.tensor(host, dtype=torch.float32, device=device)
+                                  np_dtype, off=int(off))
+            t = torch.tensor(host, dtype=dtype, device=device)
             self._tables[key] = t
         return t
 
@@ -382,7 +412,7 @@ class KernelPlan:
         """(B, S, A) start points: lane 0 = x0 (or table row 0 with
         ``lane0_stream``), lanes s > 0 = table[s]."""
         b = x0.shape[0]
-        tab = self.table(x0.device, off)
+        tab = self.table(x0.device, off, x0.dtype)
         if lane0_stream:
             return tab[:self.s].expand(b, self.s, self.a)
         return torch.cat([x0[:, None, :],
@@ -626,26 +656,28 @@ def solve_plain(plan: KernelPlan, tgt_r: torch.Tensor, tgt_t: torch.Tensor,
                 lane0_stream: bool = False,
                 track_active: bool = False) -> LaneResult:
     """The kernel's function as plain torch, on any device, with the same
-    options as :func:`solve_kernel` and the plan's uploaded seed table."""
+    options as :func:`solve_kernel` and the plan's uploaded seed table
+    (drawn at ``x0``'s dtype: a float32 solve reads the kernel's)."""
     _check_inputs(tgt_r, tgt_t, x0, plan.a)
     return plain_lanes(
         plan, plan.seeds(x0, restart_offset, lane0_stream), tgt_r, tgt_t,
-        plan.table(x0.device, restart_offset) if plan.reseed else None, x0,
+        plan.table(x0.device, restart_offset, x0.dtype) if plan.reseed
+        else None, x0,
         reseed=plan.reseed, freeze=plan.freeze, track_active=track_active)
 
 
 def solve_lanes(plan: KernelPlan, tgt_r: torch.Tensor, tgt_t: torch.Tensor,
                 x0: torch.Tensor, restart_offset: int = 0,
                 lane0_stream: bool = False) -> LaneResult:
-    """Dispatch by device: CPU -> :func:`solve_plain`, CUDA -> the kernel."""
-    if x0.device.type == "cpu":
-        return solve_plain(plan, tgt_r, tgt_t, x0, restart_offset,
-                           lane0_stream)
-    if x0.device.type == "cuda":
+    """Dispatch by :func:`kernel_runs`: the kernel where it holds, else
+    :func:`solve_plain` on the tensors' device (CPU or CUDA)."""
+    if x0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no LM solve for device {x0.device}")
+    if kernel_runs(plan.spec, plan.cfg, x0.dtype, x0.device):
         return solve_kernel(plan, tgt_r, tgt_t, x0,
                             restart_offset=restart_offset,
                             lane0_stream=lane0_stream)
-    raise ValueError(f"no LM solve for device {x0.device}")
+    return solve_plain(plan, tgt_r, tgt_t, x0, restart_offset, lane0_stream)
 
 
 def select(plan: KernelPlan, lanes: LaneResult,

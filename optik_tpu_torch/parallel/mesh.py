@@ -250,8 +250,10 @@ def ik_sharded(robot, cfg: SolverConfig, tgt_r, tgt_t, x0,
 def build_seed_sharded_solver(robot, cfg: SolverConfig, mesh: Mesh):
     """Kernel-speed IK sharded over BOTH mesh axes: the main path.
 
-    Rank (i, d) runs ``robot``'s LM solve (on the card the Hopper kernel,
-    ``ops/cuda/lm_kernel.py``; on the CPU its plain version) on pose shard
+    Rank (i, d) runs ``robot``'s LM solve (``lm_kernel.solve_lanes``: the
+    Hopper kernel of ``ops/cuda/lm_kernel.py`` where ``kernel_runs`` holds,
+    its plain version on the rank's device otherwise: on the CPU, for a
+    float64 robot, for more than 32 joints) on pose shard
     i with restart-stream slice ``[d*R/n, (d+1)*R/n)`` (R =
     cfg.total_restarts, n = mesh.shape['seed']) through the kernel's
     ``restart_offset``; ranks d > 0 swap the caller-x0 lane for the

@@ -15,13 +15,14 @@ A ``Robot`` lives on one explicit ``device`` (default ``"cuda"``; on a
 machine without a card that default raises rather than switching to the
 CPU).  ``ik_batch`` on CUDA runs the hand-written LM kernel
 (``ops/cuda/lm_kernel.py``) in Speed and Quality mode, with per-axis
-weights, any ``seed_batch`` up to 64 lanes per pose and unlimited restart
-rounds (``max_restarts=0``); on the CPU it runs the plain torch loop
-(``solver/ik.build_batch_solver``).  A config with more than 64 seed lanes
-per pose (``min(seed_batch, total_restarts)``), which the kernel cannot
-hold, runs that plain loop on the card, as the JAX facade leaves its kernel
-for its XLA path there; the route is decided by config before anything is
-built, and no failure of the kernel turns into the plain loop.
+weights, any ``seed_batch`` up to 64 lanes per pose, chains of 1 to 32
+joints and unlimited restart rounds (``max_restarts=0``); on the CPU it
+runs the plain torch loop (``solver/ik.build_batch_solver``).  What the
+kernel does not take (``lm_kernel.kernel_runs``: a float64 Robot, more than
+64 seed lanes per pose, more than 32 joints) runs that plain loop on the
+card, as the JAX facade leaves its kernel for its XLA path; the route is
+decided by config before anything is built, and no failure of the kernel
+turns into the plain loop.
 The Jacobians and differential IK are plain eager tensor operations on the
 Robot's device (no kernel of the JAX package lies on that path): the exact
 zonotope-gauge solve for 5 to 10 joints (``solver/gauge.py``), the ADMM
@@ -253,10 +254,10 @@ class Robot:
         """The cached solver for (config, ee_offset) on this device:
         ``(on_kernel, fn)``.
 
-        On CUDA the LM kernel, unless the config asks for more seed lanes
-        per pose than it holds (``lm_kernel.MAX_SEED_LANES``): then the
-        plain loop on the card, with exact libm sin/cos/atan2 as on the CPU
-        (``optik_tpu/robot.py:127-133`` routes such configs to XLA alike).
+        The LM kernel where ``lm_kernel.kernel_runs`` holds (CUDA, float32,
+        at most 64 seed lanes per pose, 1..32 joints); otherwise the plain
+        loop on this device, with exact libm sin/cos/atan2 (on the card as
+        ``optik_tpu/robot.py:90-157`` leaves the Pallas kernel for XLA).
         The kernel folds ``ee_offset`` in when it is built; the plain loop
         takes it per call."""
         ee_key = None if ee_offset is None else tuple(
@@ -264,9 +265,8 @@ class Robot:
         key = (config, ee_key)
         entry = self._solvers.get(key)
         if entry is None:
-            lanes = min(config.seed_batch, config.total_restarts)
-            if (self.device.type == "cuda"
-                    and lanes <= lm_kernel.MAX_SEED_LANES):
+            if lm_kernel.kernel_runs(self.spec, config, self.dtype,
+                                     self.device):
                 entry = (True, lm_kernel.build_kernel_solver(
                     self.spec, config, ee_offset=ee_offset))
             else:
@@ -338,10 +338,9 @@ class Robot:
 
         Seeds outside the joint limits raise, as in the scalar path;
         ``validate_seeds=False`` skips that check (for seeds in the limits
-        by construction).  On CUDA this runs the LM kernel and raises
-        ``TypeError`` unless the Robot's dtype is float32; a config with
-        more than 64 seed lanes per pose runs the plain loop on the card
-        (see :meth:`_batch_solver`).
+        by construction).  On CUDA this runs the LM kernel for a float32
+        Robot of 1..32 joints and at most 64 seed lanes per pose, and the
+        plain loop on the card otherwise (see :meth:`_batch_solver`).
         ``config.max_restarts == 0`` runs unlimited-restart rounds (see
         :meth:`_ik_batch_unlimited`), whose continuation rounds pass
         ``_restart_offset``.  The winner-selection key (``sel_key``) is

@@ -14,7 +14,9 @@ the arm's self-motion, so that build is held to poses, not joint values.
 The option cases cover what ``chip_smoke.py`` covers: per-axis weights, any
 seed count up to 64 (padded lanes, two-warp poses), Quality mode with and
 without its success cap, ``restart_offset``, ``lane0_stream``, unlimited
-restart rounds, and the three probe kernels.  The queue cases hold the
+restart rounds, the 11-joint mobile Panda and a 16-joint arm (the kernel
+is built for 1..32 joints), a float64 Robot routed to the plain loop on the
+card, and the three probe kernels.  The queue cases hold the
 kernel's schedule to the same bitwise standard at its edges: one pose,
 fewer poses than thread groups, batches that make every group (and every
 pair of warps) draw many poses in one launch, padded lanes inside a group
@@ -34,6 +36,7 @@ from optik_tpu_torch import Robot, SolverConfig
 from optik_tpu_torch.benchmarks import (bench_fp32_peak, exp_bisect,
                                         exp_warp_probe)
 from optik_tpu_torch.models import asset_path
+from optik_tpu_torch.models.synthetic import mobile_panda_urdf
 from optik_tpu_torch.ops.cuda import lm_kernel
 
 pytestmark = pytest.mark.cuda
@@ -59,20 +62,36 @@ def libraries(robot):
     import concurrent.futures
 
     header = lm_kernel.KernelPlan(robot.spec, CFG).header
-    # (quality, weighted, wide, fmad)
-    variants = [(q, w, x, f) for q in (False, True) for w in (False, True)
-                for x in (False, True) for f in (False, True)
+    # (header, quality, weighted, wide, fmad)
+    variants = [(header, q, w, x, f) for q in (False, True)
+                for w in (False, True) for x in (False, True)
+                for f in (False, True)
                 if not (w and x) and (not f or not (w or (q and x)))]
-    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
-        list(pool.map(lambda v: lm_kernel.load_library(header, *v), variants))
+    # The wide chains' Speed builds: uncontracted, and the mobile Panda's
+    # solver build.
+    for a, fmads in ((11, (False, True)), (16, (False,))):
+        wide = lm_kernel.KernelPlan(_wide_spec(a), CFG).header
+        variants += [(wide, False, False, False, f) for f in fmads]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=11) as pool:
+        list(pool.map(lambda v: lm_kernel.load_library(*v), variants))
+
+
+def _wide_spec(a):
+    """The 11-joint mobile Panda or a 16-joint arm."""
+    from optik_tpu_torch.models import ChainSpec
+
+    if a == 11:
+        return ChainSpec.from_urdf_str(mobile_panda_urdf(),
+                                       "mobile_base", "panda_hand_tcp")
+    return ChainSpec.from_urdf_str(_chain_urdf(a), "l0", f"l{a}")
 
 
 def _problem(robot, seed=0, b=B):
     rng = np.random.default_rng(seed)
     lo, hi = robot.joint_limits()
-    tr, tt = robot.fk_batch(rng.uniform(lo, hi, size=(b, 7)))
-    x0 = torch.tensor(rng.uniform(lo, hi, size=(b, 7)), dtype=torch.float32,
-                      device="cuda")
+    tr, tt = robot.fk_batch(rng.uniform(lo, hi, size=(b, lo.shape[0])))
+    x0 = torch.tensor(rng.uniform(lo, hi, size=(b, lo.shape[0])),
+                      dtype=torch.float32, device="cuda")
     return tr, tt, x0
 
 
@@ -141,6 +160,55 @@ def test_more_than_64_lanes_run_the_plain_loop_on_the_card(robot):
 
 
 LANE_FIELDS = ("x", "f", "success", "restart_index", "succ_iters")
+
+
+@pytest.mark.parametrize("a", [11, 16])
+def test_wide_chain_uncontracted_kernel_is_bitwise_plain(robot, a):
+    """Chains wider than the Panda: the mobile Panda (no spill) and a
+    16-joint arm (its per-lane state spills to local memory) are bitwise
+    the plain version in every lane."""
+    bot = Robot(_wide_spec(a), device="cuda")
+    plan = lm_kernel.KernelPlan(bot.spec, CFG)
+    tr, tt, x0 = _problem(bot, seed=4)
+    k = lm_kernel.solve_kernel(plan, tr, tt, x0, fmad=False)
+    p = lm_kernel.solve_plain(plan, tr, tt, x0)
+    for name in LANE_FIELDS:
+        assert torch.equal(getattr(k, name), getattr(p, name)), name
+    assert k.x.shape == (B, 8, a)
+    found = lm_kernel.select(plan, k, x0).found
+    assert float(found.float().mean()) >= 0.99
+
+
+def test_mobile_panda_ik_batch_launches_the_kernel(robot):
+    bot = Robot(_wide_spec(11), device="cuda")
+    tr, tt, x0 = _problem(bot, seed=5)
+    lm_kernel.LAUNCHES = 0
+    res = bot.ik_batch(CFG, tr, tt, x0)
+    assert lm_kernel.LAUNCHES == 1
+    assert float(res.found.float().mean()) >= 0.99
+    assert bool((res.cost[res.found] <= CFG.tol_f).all())
+    r, t = bot.fk_batch(res.x[res.found])
+    torch.testing.assert_close(r, tr[res.found], rtol=0, atol=2e-3)
+    torch.testing.assert_close(t, tt[res.found], rtol=0, atol=2e-3)
+
+
+def test_float64_robot_runs_the_plain_loop_on_the_card(robot):
+    """A float64 Robot is not the kernel's (lm_kernel.kernel_runs): it runs
+    the plain loop on the card, with no launch, and finds what the same
+    loop finds on the host."""
+    bot = Robot(robot.spec, dtype=torch.float64, device="cuda")
+    tr, tt, x0 = (v.double() for v in _problem(robot, seed=7))
+    lm_kernel.LAUNCHES = 0
+    res = bot.ik_batch(CFG, tr, tt, x0)
+    assert lm_kernel.LAUNCHES == 0
+    assert res.x.is_cuda and res.x.dtype == torch.float64
+    host = Robot(robot.spec, dtype=torch.float64, device="cpu").ik_batch(
+        CFG, tr.cpu(), tt.cpu(), x0.cpu())
+    assert torch.equal(res.found.cpu(), host.found)
+    assert float(res.found.float().mean()) >= 0.99
+    assert bool((res.cost[res.found] <= CFG.tol_f).all())
+
+
 QUALITY = SolverConfig.create("quality", max_iters=32, tol_f=1e-6)
 WEIGHTS = dict(linear_weight=(0.0, 1.0, 1.0), angular_weight=(0.5, 1.0, 2.0))
 OPTION_CASES = {

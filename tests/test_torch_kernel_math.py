@@ -10,7 +10,8 @@ without multiply-add contraction, and holds ``residual_and_jtask`` (FK with
 the chain's static terms folded at compile time, the SE(3) log, the task
 Jacobian, the weights) against ``soa.residual_and_jtask`` in kernel math
 mode on the same float32 inputs: every value bit for bit, a chain with
-prismatic joints and skew axes included.  It skips where there is no
+prismatic joints and skew axes included, and chains wider than the Panda
+(the 11-joint mobile Panda, a 16-joint arm).  It skips where there is no
 ``g++``.
 
 One allowance: torch's CPU ``sqrt`` is not correctly rounded for every
@@ -29,6 +30,7 @@ import torch
 
 from optik_tpu_torch import SolverConfig
 from optik_tpu_torch.models import ChainSpec, asset_path
+from optik_tpu_torch.models.synthetic import chain_urdf, mobile_panda_urdf
 from optik_tpu_torch.ops import soa
 from optik_tpu_torch.ops.cuda import lm_kernel
 
@@ -110,6 +112,11 @@ int main(int argc, char** argv) {
 def _spec(name):
     if name == "odd":
         return ChainSpec.from_urdf_str(ODD_URDF, "b", "ee")
+    if name == "mobile_panda":
+        return ChainSpec.from_urdf_str(mobile_panda_urdf(),
+                                       "mobile_base", "panda_hand_tcp")
+    if name == "chain16":
+        return ChainSpec.from_urdf_str(chain_urdf(16), "l0", "l16")
     urdf, base, ee = {"panda": ("panda.urdf", "panda_link0",
                                 "panda_hand_tcp"),
                       "ur5": ("ur5.urdf", "base_link", "ee_link")}[name]
@@ -133,7 +140,8 @@ def _host_binary(plan, weighted, tmp_path) -> pathlib.Path:
 
 
 @pytest.mark.parametrize("robot,weighted", [
-    ("panda", False), ("panda", True), ("ur5", False), ("odd", False)])
+    ("panda", False), ("panda", True), ("ur5", False), ("odd", False),
+    ("mobile_panda", False), ("chain16", False)])
 def test_kernel_math_on_the_host_is_bitwise_plain(robot, weighted, tmp_path,
                                                   monkeypatch):
     if shutil.which("g++") is None:

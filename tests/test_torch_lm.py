@@ -20,7 +20,11 @@
     The same limits hold for every option the Pallas kernel runs: Quality
     (winner = the least seed distance; "same winner" there means distances
     within 1e-3), per-axis weights, a seed count that does not divide the
-    tile rows, ``restart_offset`` and ``lane0_stream``.
+    tile rows, ``restart_offset`` and ``lane0_stream``, and for chains wider
+    than the Panda: the 11-joint mobile Panda (the Panda on a holonomic base
+    with a lift, ``models.synthetic.mobile_panda_urdf``) and a 12-joint arm.
+  * ``lm_kernel.kernel_runs``, the one rule that routes a solve to the
+    kernel or to the plain loop, over device, dtype, seed lanes and DoF.
 """
 
 import dataclasses
@@ -30,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+
 from optik_tpu import Robot as JaxRobot
 from optik_tpu import SolutionMode as JaxMode
 from optik_tpu import SolverConfig as JaxConfig
@@ -37,8 +42,9 @@ from optik_tpu.models import asset_path
 from optik_tpu.ops.pallas import lm_kernel as jax_kernel
 from optik_tpu.solver import ik as jax_ik
 
-from optik_tpu_torch import SolverConfig
+from optik_tpu_torch import Robot, SolverConfig
 from optik_tpu_torch.models import ChainSpec
+from optik_tpu_torch.models.synthetic import chain_urdf, mobile_panda_urdf
 from optik_tpu_torch.ops.cuda import lm_kernel
 from optik_tpu_torch.solver import ik
 
@@ -52,11 +58,28 @@ def panda():
     return jr, ChainSpec.from_arrays(dataclasses.asdict(jr.spec))
 
 
+# Chains of more than 10 joints: (URDF, base link, end link).
+WIDE = {"mobile_panda": (mobile_panda_urdf, "mobile_base",
+                         "panda_hand_tcp"),
+        "chain12": (lambda: chain_urdf(12), "l0", "l12")}
+
+
+@pytest.fixture(scope="module", params=["panda"] + sorted(WIDE))
+def chain(request):
+    """(name, JAX robot, port spec) of the Panda and of each wide chain."""
+    if request.param == "panda":
+        return ("panda", *request.getfixturevalue("panda"))
+    urdf, base, ee = WIDE[request.param]
+    jr = JaxRobot.from_urdf_str(urdf(), base, ee, dtype=jnp.float64)
+    return (request.param, jr,
+            ChainSpec.from_arrays(dataclasses.asdict(jr.spec)))
+
+
 def _problem(jr, seed, dtype):
     rng = np.random.default_rng(seed)
     lo, hi = jr.joint_limits()
-    tr, tt = jr.fk_batch(rng.uniform(lo, hi, size=(B, 7)))
-    x0 = rng.uniform(lo, hi, size=(B, 7))
+    tr, tt = jr.fk_batch(rng.uniform(lo, hi, size=(B, lo.shape[0])))
+    x0 = rng.uniform(lo, hi, size=(B, lo.shape[0]))
     return (np.asarray(tr, dtype), np.asarray(tt, dtype),
             np.asarray(x0, dtype))
 
@@ -145,16 +168,47 @@ def _assert_matches_pallas(jr, spec, mode, kw, seed, call_kw):
     return plan, lanes, got, dx
 
 
-def test_kernel_plain_version_matches_pallas_interpret(panda):
-    jr, spec = panda
+def test_kernel_plain_version_matches_pallas_interpret(chain):
+    """On the Panda and on chains of 11 and 12 joints, which the Pallas
+    kernel takes like any other (it reads the DoF from the chain) and the
+    CUDA kernel is built for."""
+    _, jr, spec = chain
     kw = dict(max_restarts=24, seed_batch=8, max_iters=32)
-    _, lanes, _, dx = _assert_matches_pallas(jr, spec, "speed", kw, 1, {})
+    plan, lanes, _, dx = _assert_matches_pallas(jr, spec, "speed", kw, 1, {})
     assert dx.max() <= 1e-3
     # Lane outputs are on the (B, S) grid; winners are lowest successful
     # restart indices.
-    assert lanes.x.shape == (B, 8, 7) and lanes.restart_index.dtype == \
-        torch.int32
+    assert lanes.x.shape == (B, 8, spec.num_positions)
+    assert lanes.restart_index.dtype == torch.int32
     assert int(lanes.lane_iters) > 0
+    assert lm_kernel.kernel_runs(spec, plan.cfg, torch.float32, "cuda")
+
+
+def test_float64_plain_version_matches_pallas_interpret(panda):
+    """A float64 solve is not the kernel's (``kernel_runs``): solve_lanes
+    runs the plain version, with the seed table drawn at float64 as the
+    JAX kernel draws it at its dtype.  Against the Pallas kernel at float64
+    in interpret mode: equal found masks and winners, x within 1e-8 (the
+    limit of the f64 comparison above)."""
+    jr, spec = panda
+    kw = dict(max_restarts=24, seed_batch=8, max_iters=8)
+    tr, tt, x0 = _problem(jr, 1, np.float64)
+    ref = jax_kernel.build_kernel_solver(
+        jr.spec, JaxConfig.create("speed", **kw), jnp.float64, p_blk=B // 2,
+        interpret=True)(tr, tt, x0)
+    plan = lm_kernel.KernelPlan(spec, SolverConfig.create("speed", **kw))
+    x0_t = torch.tensor(x0)
+    assert not lm_kernel.kernel_runs(spec, plan.cfg, x0_t.dtype, "cuda")
+    lanes = lm_kernel.solve_lanes(plan, torch.tensor(tr), torch.tensor(tt),
+                                  x0_t)
+    got = lm_kernel.select(plan, lanes, x0_t)
+    assert got.x.dtype == torch.float64
+    found = np.asarray(ref.found)
+    assert found.sum() >= B - 2
+    np.testing.assert_array_equal(got.found.numpy(), found)
+    np.testing.assert_array_equal(got.sel_key.numpy(), np.asarray(ref.sel_key))
+    np.testing.assert_allclose(got.x.numpy()[found], np.asarray(ref.x)[found],
+                               rtol=0, atol=1e-8)
 
 
 WEIGHTS = dict(linear_weight=(0.0, 1.0, 1.0), angular_weight=(0.5, 1.0, 2.0))
@@ -258,7 +312,53 @@ def test_kernel_wrapper_dispatch_and_checks(panda):
                                freeze=True)
 
 
-def test_fp32_operation_count_formula(panda):
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("lanes", [64, 128])
+@pytest.mark.parametrize("dof", [7, 11, lm_kernel.MAX_DOF + 1])
+def test_kernel_runs_routes_by_device_dtype_lanes_and_dof(device, dtype,
+                                                          lanes, dof):
+    """The one predicate every route asks: the kernel takes float32 on a
+    CUDA device, at most 64 seed lanes per pose and 1..32 joints; all else
+    is the plain loop's.  It reads the config and never the device itself,
+    so it holds here without a card."""
+    spec = ChainSpec.from_urdf_str(chain_urdf(dof), "l0",
+                                   f"l{dof}")
+    cfg = SolverConfig(max_restarts=128, seed_batch=lanes)
+    want = (device == "cuda" and dtype == torch.float32 and lanes <= 64
+            and dof <= 32)
+    assert lm_kernel.kernel_runs(spec, cfg, dtype, device) is want
+    assert lm_kernel.kernel_runs(spec, cfg, dtype, torch.device(device)) \
+        is want
+
+
+def test_chains_above_the_cap_run_the_plain_version():
+    """A 33-joint chain has a plan (its plain version runs anywhere), and
+    solve_lanes runs it; only a build of its kernel raises, before nvcc."""
+    a = lm_kernel.MAX_DOF + 1
+    spec = ChainSpec.from_urdf_str(chain_urdf(a), "l0", f"l{a}")
+    plan = lm_kernel.KernelPlan(spec, SolverConfig(max_restarts=4,
+                                                   seed_batch=4, max_iters=2))
+    rng = np.random.default_rng(0)
+    q = torch.tensor(rng.uniform(*spec.joint_limits(), size=(3, a)),
+                     dtype=torch.float32)
+    tr, tt = Robot(spec, device="cpu").fk_batch(q)
+    lanes = lm_kernel.solve_lanes(plan, tr, tt, q)
+    assert lanes.x.shape == (3, 4, a)
+    assert bool(lanes.success[:, 0].all())  # lane 0 starts at the answer
+    with pytest.raises(ValueError, match=f"1..32 DoF, got {a}"):
+        plan.library(freeze=True)
+
+
+# FP32 operations per lane-iteration of each chain's library: the count the
+# roofline bound uses.  The mobile Panda's is at least the Panda's plus the
+# dense algebra of its 4 more joints (67 per joint: J J^T 42, the projected
+# step 13, the gain ratio 12).
+OPS = {"panda": 2015, "mobile_panda": 2361, "chain12": 2981}
+
+
+def test_fp32_operation_count_formula(chain):
     from optik_tpu_torch.ops import opcount, soa
 
     # The tracer: the dead side of a select, a repeated subexpression and
@@ -273,7 +373,7 @@ def test_fp32_operation_count_formula(panda):
     assert t.cost([torch.sqrt(torch.floor(x * 0.5)).clamp_min(0.1)]) == 3
 
     # Traced values are the plain version's: same residual and Jacobian.
-    _, spec = panda
+    name, _, spec = chain
     plan = lm_kernel.KernelPlan(spec, SolverConfig())
     rng = np.random.default_rng(5)
     lo, hi = np.asarray(spec.lower), np.asarray(spec.upper)
@@ -291,16 +391,21 @@ def test_fp32_operation_count_formula(panda):
         [[t.leaf(f"r{i}{j}", float(v)) for j, v in enumerate(row)]
          for i, row in enumerate(rt)],
         [t.leaf(f"t{i}", float(v)) for i, v in enumerate(tt)], approx=True)
-    got = [v.val for v in e] + [v.val for row in jt for v in row]
+    assert len(jt) == 6 and len(jt[0]) == spec.num_positions
+    # A prismatic joint's angular column is a static 0: a float, no node.
+    got = [opcount._val(v) for v in e] + [opcount._val(v) for row in jt
+                                          for v in row]
     want = [float(v) for v in e_ref] + [float(v) for row in jt_ref for v in row]
     assert got == want
 
-    # 7-DoF Panda with its fixed tip: the count the roofline bound uses.  It
-    # lies below 3,120, the kernel's own operations with both sides of every
-    # select and the unfolded chain.
     n = lm_kernel.fp32_ops_per_lane_iter(plan)
-    assert n == lm_kernel.fp32_ops_per_lane_iter(plan) == 2015
-    assert n <= lm_kernel.fp32_ops_per_lane_iter(plan, samples=4) < 3120
+    assert n == lm_kernel.fp32_ops_per_lane_iter(plan) == OPS[name]
+    assert n <= lm_kernel.fp32_ops_per_lane_iter(plan, samples=4)
+    assert OPS["mobile_panda"] >= OPS["panda"] + 67 * 4
+    if name == "panda":
+        # Below 3,120, the kernel's own operations with both sides of
+        # every select and the unfolded chain.
+        assert lm_kernel.fp32_ops_per_lane_iter(plan, samples=4) < 3120
 
 
 def test_pack_chain_layout(panda):
@@ -335,6 +440,8 @@ def _specs():
             ("panda", "panda.urdf", "panda_link0", "panda_hand_tcp"),
             ("ur5", "ur5.urdf", "base_link", "ee_link")):
         out[name] = ChainSpec.from_urdf_file(asset_path(urdf), base, ee)
+    for name, (urdf, base, ee) in WIDE.items():
+        out[name] = ChainSpec.from_urdf_str(urdf(), base, ee)
     return out
 
 
@@ -372,7 +479,7 @@ class _Lane:
         return "neg"
 
 
-@pytest.mark.parametrize("robot", ["panda", "ur5"])
+@pytest.mark.parametrize("robot", ["panda", "ur5", "mobile_panda", "chain12"])
 def test_chain_header_round_trips_and_marks_the_folded_terms(robot):
     from optik_tpu_torch.ops import soa
 

@@ -29,7 +29,7 @@ def _bounds(unbounded: bool):
     return lo, hi
 
 
-def _jax_tables(lo, hi, dtype):
+def _jax_tables(lo, hi, dtype, rows=ROWS):
     ls = np.where(np.isfinite(lo), lo, -np.pi)
     hs = np.where(np.isfinite(hi), hi, np.pi)
 
@@ -43,7 +43,7 @@ def _jax_tables(lo, hi, dtype):
                                       minval=jnp.asarray(ls, dtype),
                                       maxval=jnp.asarray(hs, dtype))
 
-        return jax.vmap(draw)(jnp.arange(ROWS))
+        return jax.vmap(draw)(jnp.arange(rows))
 
     return {(s, o): np.asarray(table(s, o)) for s in SEEDS for o in OFFSETS}
 
@@ -57,6 +57,28 @@ def test_seed_table_bitwise_equal_to_jax(dtype, unbounded):
     for (seed, off), want in ref.items():
         got = rnd.seed_table(seed, ROWS, lo, hi, dtype, off=off)
         assert got.dtype == dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got.view(ints), want.view(ints),
+                                      err_msg=f"seed={seed} off={off}")
+
+
+@pytest.mark.parametrize("a,rows", [(11, ROWS), (12, ROWS), (16, ROWS),
+                                    (11, 255)],
+                         ids=["a11", "a12", "a16", "a11_odd_rows"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_wide_chain_seed_table_bitwise_equal_to_jax(dtype, a, rows):
+    """Chains of 11 and more joints (the mobile Panda, 12- and 16-joint
+    arms): every row is one draw of ``a`` elements, so the element counters
+    run past the Panda's 7; ``a = 11`` is an odd draw length, and 255 rows
+    make the table's ``rows * a`` odd as well."""
+    rng = np.random.default_rng(a + rows)
+    lo = -rng.uniform(0.5, 3.0, size=a)
+    hi = rng.uniform(0.0, 3.0, size=a)
+    lo[a // 2], hi[a // 2] = -np.inf, np.inf  # samples in [-pi, pi]
+    ref = _jax_tables(lo, hi, jnp.dtype(dtype), rows)
+    ints = np.int32 if dtype == np.float32 else np.int64
+    for (seed, off), want in ref.items():
+        got = rnd.seed_table(seed, rows, lo, hi, dtype, off=off)
+        assert got.shape == (rows, a) and want.shape == (rows, a)
         np.testing.assert_array_equal(got.view(ints), want.view(ints),
                                       err_msg=f"seed={seed} off={off}")
 

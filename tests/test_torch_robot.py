@@ -22,6 +22,7 @@ import optik_tpu
 from optik_tpu.models import asset_path
 
 import optik_tpu_torch
+from optik_tpu_torch.models.synthetic import mobile_panda_urdf
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 MAIN = dict(max_restarts=64, seed_batch=8, max_iters=32, tol_f=1e-6)
@@ -57,6 +58,43 @@ def test_ik_batch_matches_jax_main_config(robots):
     r_got, t_got = tr_.fk_batch(got.x[got.found])
     np.testing.assert_allclose(r_got.numpy(), rot[found], atol=2e-3)
     np.testing.assert_allclose(t_got.numpy(), trans[found], atol=2e-3)
+
+
+def test_ik_batch_matches_jax_mobile_panda():
+    """The main configuration on the 11-joint mobile Panda (the Panda on a
+    holonomic base with a lift, ``models.synthetic.mobile_panda_urdf``), a
+    chain the CUDA kernel takes since it is built for 1..32 joints: at f64
+    on the CPU through both facades, with the limits of the Panda case
+    above."""
+    args = (mobile_panda_urdf(), "mobile_base", "panda_hand_tcp")
+    jr = optik_tpu.Robot.from_urdf_str(*args, dtype=jnp.float64)
+    tr_ = optik_tpu_torch.Robot.from_urdf_str(*args, dtype=torch.float64,
+                                              device="cpu")
+    assert tr_.num_positions() == 11
+    rng = np.random.default_rng(5)
+    lo, hi = jr.joint_limits()
+    rot, trans = jr.fk_batch(rng.uniform(lo, hi, size=(B, 11)))
+    rot, trans = np.asarray(rot), np.asarray(trans)
+    x0 = rng.uniform(lo, hi, size=(B, 11))
+    ref = jr.ik_batch(optik_tpu.SolverConfig(**MAIN), rot, trans, x0)
+    cfg = optik_tpu_torch.SolverConfig(**MAIN)
+    got = tr_.ik_batch(cfg, rot, trans, x0)
+
+    found = np.asarray(ref.found)
+    assert found.sum() >= B - 1
+    np.testing.assert_array_equal(got.found.numpy(), found)
+    np.testing.assert_allclose(got.x.numpy()[found], np.asarray(ref.x)[found],
+                               rtol=0, atol=1e-8)
+    assert np.all(got.cost.numpy()[found] <= MAIN["tol_f"])
+    r_got, t_got = tr_.fk_batch(got.x[got.found])
+    np.testing.assert_allclose(r_got.numpy(), rot[found], atol=2e-3)
+    np.testing.assert_allclose(t_got.numpy(), trans[found], atol=2e-3)
+    # On the card the same float32 solve runs the kernel; float64 runs the
+    # plain loop there, as here.
+    from optik_tpu_torch.ops.cuda import lm_kernel
+
+    assert lm_kernel.kernel_runs(tr_.spec, cfg, torch.float32, "cuda")
+    assert not lm_kernel.kernel_runs(tr_.spec, cfg, torch.float64, "cuda")
 
 
 def test_fk_matches_jax(robots):

@@ -18,7 +18,10 @@ runs here, on the conftest's fake-device mesh, on the same numpy inputs.
     mode, f32) against the JAX one in Pallas interpret mode, with the
     limits of ``tests/test_torch_lm.py``: masks differ on at most 1 of 16
     poses, x within 1e-3 on shared winners (equal iterations-to-converge;
-    Quality: seed distances within 1e-3), every found cost <= tol_f;
+    Quality: seed distances within 1e-3), every found cost <= tol_f; on
+    the Panda and on a 12-joint arm (``models.synthetic.chain_urdf(12)``,
+    in a world of its own), wider than the Panda as the Pallas kernel and
+    the CUDA kernel both take;
   * port against port, bitwise (kernel math has no transcendental call):
     the seed-sharded found mask against the single-device solve in both
     modes, Quality x and cost, the (1, 1) mesh, data-axis invariance and
@@ -45,6 +48,7 @@ from optik_tpu.parallel import mesh as jax_mesh
 
 from optik_tpu_torch import Robot, SolverConfig
 from optik_tpu_torch.models import ChainSpec
+from optik_tpu_torch.models.synthetic import chain_urdf
 from optik_tpu_torch.ops.cuda import lm_kernel
 from optik_tpu_torch.parallel import launch
 from optik_tpu_torch.solver import ik, lm_soa
@@ -60,6 +64,11 @@ def _jax_robot(dtype):
                                    "panda_hand_tcp", dtype=dtype)
 
 
+def _jax_chain12():
+    return JaxRobot.from_urdf_str(chain_urdf(12), "l0", "l12",
+                                  dtype=jnp.float32)
+
+
 def _lockstep_problem(jr):
     """tests/test_sharding.py's problem: 8 targets, x0 at the origin."""
     rng = np.random.default_rng(0)
@@ -73,8 +82,8 @@ def _seed_problem(jr, b, seed):
     """tests/test_seed_sharded.py's problem at f32."""
     rng = np.random.default_rng(seed)
     lo, hi = jr.joint_limits()
-    tr, tt = jr.fk_batch(rng.uniform(lo, hi, size=(b, 7)))
-    x0 = rng.uniform(lo, hi, size=(b, 7)).astype(np.float32)
+    tr, tt = jr.fk_batch(rng.uniform(lo, hi, size=(b, lo.shape[0])))
+    x0 = rng.uniform(lo, hi, size=(b, lo.shape[0])).astype(np.float32)
     return np.asarray(tr, np.float32), np.asarray(tt, np.float32), x0
 
 
@@ -146,6 +155,23 @@ def world():
     return spec, jr64, jr32, cases, results
 
 
+@pytest.fixture(scope="module")
+def world12():
+    """As ``world``, for the 12-joint arm's seed-sharded cases: a world of
+    its own, since a rank runs every case on one chain."""
+    jr32 = _jax_chain12()
+    spec = ChainSpec.from_arrays(dataclasses.asdict(jr32.spec))
+    cases = {("seed12", mode, (2, 2)): launch.Case(
+        "seed_sharded", SolverConfig.create(mode, **SEED_KW), 2, 2,
+        _seed_problem(jr32, B_SEED, seed))
+        for mode, seed in (("speed", 0), ("quality", 1))}
+    names = list(cases)
+    ranks = launch.spawn(launch.solve, WORLD, [cases[n] for n in names],
+                         spec, "cpu", timeout=300)
+    results = [dict(zip(names, r)) for r in ranks]
+    return spec, None, jr32, cases, results
+
+
 def _result(world, name):
     """Rank 0's results of one case, after checking that every rank of the
     case's mesh returned the same full batch."""
@@ -202,11 +228,10 @@ def test_ik_sharded_matches_the_unsharded_port(world, mode, shape):
                                    atol=1e-12)
 
 
-@pytest.mark.parametrize("mode", ["speed", "quality"])
-def test_seed_sharded_matches_jax_interpret(world, mode):
-    _, _, jr32, cases, _ = world
-    case = cases[("seed", mode, (2, 2))]
-    got = _result(world, ("seed", mode, (2, 2)))[0]
+def _assert_seed_sharded_matches_jax(world, jr32, name, mode):
+    cases = world[3]
+    case = cases[name]
+    got = _result(world, name)[0]
     m = jax_mesh.make_mesh(jax.devices()[:4], data=2, seed=2)
     ref = jax_mesh.build_seed_sharded_solver(
         jr32, JaxConfig.create(mode, **SEED_KW), m, interpret=True,
@@ -230,6 +255,22 @@ def test_seed_sharded_matches_jax_interpret(world, mode):
     # Not-found poses: the (x0, +inf) sentinel, as in the JAX package.
     np.testing.assert_array_equal(x_got[~f_got], x0[~f_got])
     assert np.all(np.isinf(got.cost.numpy()[~f_got]))
+
+
+@pytest.mark.parametrize("mode", ["speed", "quality"])
+def test_seed_sharded_matches_jax_interpret(world, mode):
+    _assert_seed_sharded_matches_jax(world, world[2], ("seed", mode, (2, 2)),
+                                     mode)
+
+
+@pytest.mark.parametrize("mode", ["speed", "quality"])
+def test_seed_sharded_matches_jax_interpret_chain12(world12, mode):
+    """The same on a 12-joint arm: the port's KernelPlan takes the chain
+    (its plain version here, the kernel on the card) as the Pallas kernel
+    does in interpret mode."""
+    assert world12[0].num_positions == 12
+    _assert_seed_sharded_matches_jax(world12, world12[2],
+                                     ("seed12", mode, (2, 2)), mode)
 
 
 def _single_device(spec, case):
