@@ -12,8 +12,11 @@ Phases (each prints a line; any failed check exits non-zero):
      Quality with two-warp poses (phase 17's capped rows), the UR5's Speed
      library (phases 16 and 17) and the UR3e's (phase 17's bench_ops),
      phase 18's chains (the mobile Panda in Speed, Speed+weights and
-     Quality, 16 joints and the widest chain the kernel takes in Speed,
-     each contracted and uncontracted; the widest first), the
+     Quality, 16 joints and the widest chain folded into a library in
+     Speed, each contracted and uncontracted; the widest first), the
+     run-time chain's libraries (-DOPTIK_RUNTIME_CHAIN: Speed,
+     Speed+weights and Quality, contracted and uncontracted, one of each
+     for every chain; their registers, spills and resident warps), the
      FP32 throughput probe and the primitive probes, and beside them the
      native host library and the C++ example (optik_tpu_torch/native,
      examples/example.cpp, g++); registers, spills,
@@ -67,15 +70,26 @@ Phases (each prints a line; any failed check exits non-zero):
      against its plain version as in phase 5; (b) its kernel against its
      plain version at B=4096 in Speed, Speed with weights and Quality (256,
      64, 48): uncontracted bitwise, contracted within the limits of phase
-     3, success within 0.001; (c) 16 joints and the widest chain the
-     kernel takes (lm_kernel.MAX_DOF), where the per-lane state spills, at
-     B=131,072: uncontracted bitwise, contracted within the limits of
-     phase 3; (d) a float64 Panda Robot through
+     3, success within 0.001; (c) 16 joints and the widest chain folded
+     into a library (lm_kernel.MAX_DOF), where the per-lane state spills,
+     at B=131,072: uncontracted bitwise, contracted within the limits of
+     phase 3; after (a) and (c), on the same inputs and with the same
+     checks, the run-time-chain form of the kernel at 11, 16 and 32
+     joints, for the record; (e) the run-time chain's main path: 48 and 64
+     joints through Robot.ik_batch at B=131,072 as in (a) (five solves,
+     five launches, the plain loop never run), then its kernel against its
+     plain version there as in phase 5; (f) 48 joints at B=4096 in Speed
+     with weights and Quality (256, 64, 48) as in (b); (g) 128 joints
+     through ik_batch at B=4096 as in (e): no cap; every run-time row
+     loads the same library file; (d) a float64 Panda Robot through
      ik_batch on the card: no launch (lm_kernel.kernel_runs routes it to
      the plain loop), found masks within 0.1% of the host's f64 plain
-     loop.  Per DoF (7, 11, 16, widest): registers, spills, resident warps,
-     nvcc seconds, kernel and plain ms, lane-iterations per solve and the
-     bound; lm_solve's "wide" object in the kernels line holds them;
+     loop.  Per DoF (7, 11, 16, 32 folded; 11, 16, 32, 48, 64, 128 at run
+     time): registers, spills, resident warps, nvcc seconds, the run-time
+     chain's scratch bytes per lane, kernel and plain ms, lane-iterations
+     per solve, FP32 operations per lane-iteration and the bound;
+     lm_solve's "wide" object and the lm_solve_runtime_chain entry of the
+     kernels line hold them;
  10. the probes: fp32_peak (three bodies: uncontracted bitwise at full
      shape and depth, contracted within 1e-5 relative at 4 trips, then
      Gop/s), warp_probe (seven cases exact, the four that one PyTorch call
@@ -158,16 +172,17 @@ Phases (each prints a line; any failed check exits non-zero):
      unsharded plain loop, lane_iters equal.  Several ranks on one card
      prove the merge, not the scaling.  Phase 6 calls ik_batch in bench.py's
      form (validate_seeds=False, rescue_overflow=False; overflow_count 0).
-Then one JSON line with the diff-IK, S=128, wide-chain, float64, native,
-parity, harness and sharded paths, one with every kernel (lm_solve's
-launches on phases 9, 16 and 17 among its fields) and, last, the result
-line.  Without a
+Then one JSON line with the diff-IK, S=128, wide-chain, run-time-chain,
+float64, native, parity, harness and sharded paths, one with every kernel
+(lm_solve's launches on phases 9, 16 and 17 among its fields;
+lm_solve_runtime_chain's per DoF) and, last, the result line.  Without a
 card, or run from a directory that holds no checkout, it exits 2 and prints
 no result.
 """
 
 import concurrent.futures
 import json
+import multiprocessing
 import pathlib
 import re
 import subprocess
@@ -204,6 +219,10 @@ SCALING_ITERS = 1      # phase 17's bench_scaling depth (its default: 3)
 # and phase 3's FK check holds as it stands.
 WIDE_WEIGHTS = dict(linear_weight=(1.0, 2.0, 1.5),
                     angular_weight=(2.0, 1.0, 1.5))
+# Phase 18's run-time-chain arms: the main path at B_MAIN, and the chain
+# that shows there is no cap at B_CHECK.
+RUNTIME_MAIN_DOF = (48, 64)
+RUNTIME_NO_CAP_DOF = 128
 
 
 def fail(msg: str) -> None:
@@ -1323,27 +1342,30 @@ def sharded_phases(robot, cfg, qcfg, main_in, q_in, main_ref, q_ref):
 
 def wide_robots(Robot):
     """The chains of phase 18, keyed by DoF: the 11-joint mobile Panda, a
-    16-joint arm and the widest the kernel is built for."""
+    16-joint arm and the widest chain folded into a library, then the
+    run-time chain's arms (RUNTIME_MAIN_DOF and RUNTIME_NO_CAP_DOF)."""
     from optik_tpu_torch.models.synthetic import chain_urdf, mobile_panda_urdf
     from optik_tpu_torch.ops.cuda import lm_kernel
 
-    top = lm_kernel.MAX_DOF
-    return {11: Robot.from_urdf_str(mobile_panda_urdf(), "mobile_base",
-                                    "panda_hand_tcp", device="cuda"),
-            16: Robot.from_urdf_str(chain_urdf(16), "l0", "l16",
-                                    device="cuda"),
-            top: Robot.from_urdf_str(chain_urdf(top), "l0", f"l{top}",
-                                     device="cuda")}
+    out = {11: Robot.from_urdf_str(mobile_panda_urdf(), "mobile_base",
+                                   "panda_hand_tcp", device="cuda")}
+    for a in (16, lm_kernel.MAX_DOF, *RUNTIME_MAIN_DOF, RUNTIME_NO_CAP_DOF):
+        out[a] = Robot.from_urdf_str(chain_urdf(a), "l0", f"l{a}",
+                                     device="cuda")
+    return out
 
 
 def wide_variants(robots, cfg, qcfg):
     """The LM libraries phase 18 launches, for phase 2's pool, the widest
-    chain first (its nvcc takes longest): {name: (header, quality,
+    folded chain first (its nvcc takes longest), then the run-time chain's
+    (one library per variant for every chain): {name: (header, quality,
     weighted, wide, fmad)}."""
     from optik_tpu_torch.ops.cuda import lm_kernel
 
     out = {}
     for a in sorted(robots, reverse=True):
+        if a > lm_kernel.MAX_DOF:
+            continue
         header = lm_kernel.KernelPlan(robots[a].spec, cfg).header
         for fmad in (True, False):
             out[f"{a}-DoF speed{'' if fmad else ' uncontracted'}"] = (
@@ -1356,12 +1378,55 @@ def wide_variants(robots, cfg, qcfg):
                                                      False, fmad)
                 out[f"11-DoF quality{tag}"] = (header, True, False,
                                               plan_q.wide(False), fmad)
+    plan_q = lm_kernel.KernelPlan(robots[RUNTIME_MAIN_DOF[0]].spec, qcfg)
+    for fmad in (True, False):
+        tag = "" if fmad else " uncontracted"
+        out[f"runtime speed{tag}"] = (None, False, False, False, fmad)
+        out[f"runtime speed weighted{tag}"] = (None, False, True, False, fmad)
+        out[f"runtime quality{tag}"] = (None, True, False, plan_q.wide(False),
+                                        fmad)
     return out
+
+
+def op_count(spec, config):
+    """lm_kernel.fp32_ops_per_lane_iter of one chain under the main config
+    (run in a spawned process while the card works: tracing a wide chain
+    at 64 points takes seconds of host time)."""
+    from optik_tpu_torch import SolverConfig
+    from optik_tpu_torch.ops.cuda import lm_kernel
+
+    return lm_kernel.fp32_ops_per_lane_iter(
+        lm_kernel.KernelPlan(spec, SolverConfig(**config)))
+
+
+def count_plain_loops():
+    """Count the plain loop's runs from here on (every route to it calls
+    lm_soa.solve_soa): returns a function that reads the count and
+    restores the loop."""
+    from optik_tpu_torch.solver import lm_soa
+
+    orig, calls = lm_soa.solve_soa, [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return orig(*args, **kwargs)
+
+    lm_soa.solve_soa = counted
+
+    def done():
+        lm_soa.solve_soa = orig
+        return calls[0]
+
+    return done
 
 
 def dof_line(a, row):
     """Print one chain's row of phase 18's per-DoF table."""
-    print(f"  {a} DoF @B={row['B']}: {row['registers']} registers, "
+    form = ""
+    if "scratch_bytes_per_lane" in row:
+        form = (f" run-time chain, {row['scratch_bytes_per_lane']} B of "
+                f"scratch per lane,")
+    print(f"  {a} DoF @B={row['B']}:{form} {row['registers']} registers, "
           f"{row['spill_bytes']} B spilled ({row['stack']} B stack), "
           f"{row['warps_per_sm']} warps per SM, nvcc {row['nvcc_s']:.1f} s; "
           f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms; "
@@ -1372,7 +1437,7 @@ def dof_line(a, row):
           flush=True)
 
 
-def wide_phases(panda, robots, libs, cfg, qcfg, panda_row):
+def wide_phases(panda, robots, cfg, qcfg, panda_row, ops_jobs):
     """Phase 18: chains wider than the Panda, and float64 on the card.
 
     (a) the main path on the mobile Panda, Robot.from_urdf_str -> fk_batch
@@ -1384,14 +1449,24 @@ def wide_phases(panda, robots, libs, cfg, qcfg, panda_row):
     its plain version at B = 4,096 in Speed, Speed with weights and Quality
     (256, 64, 48): uncontracted bitwise, contracted within phase 3's limits,
     success within 0.001; (c) as (a)'s checks and times for 16 joints and
-    the widest chain, where the per-lane state spills, at B = 131,072;
-    (d) a float64 Panda Robot through ik_batch on the card: no launch (the
-    plain loop, by lm_kernel.kernel_runs), found masks within 0.1% of the
-    host's f64 plain loop.  Per DoF (the Panda's row from phases 2 and 5)
-    registers, spills, resident warps, nvcc seconds, kernel and plain ms,
-    lane-iterations per solve and the bound.  ``panda`` is phase 6's
-    Robot.  Returns (paths, the lm_solve entry's "wide" object, whose
-    "launches" are (a)'s)."""
+    the widest folded chain, where the per-lane state spills, at
+    B = 131,072; after each of (a) and (c) the run-time-chain form on the
+    same inputs, for the record, with the same checks; (e) the run-time
+    chain's main path, 48 and 64 joints through ik_batch at B = 131,072 as
+    in (a), the plain loop never run, then the kernel against its plain
+    version there; (f) 48 joints at B = 4,096 in Speed with weights and in
+    Quality (256, 64, 48) as in (b); (g) 128 joints through ik_batch at
+    B = 4,096 as in (e), to show there is no cap; (d) a float64 Panda Robot
+    through ik_batch on the card: no launch (the plain loop, by
+    lm_kernel.kernel_runs), found masks within 0.1% of the host's f64 plain
+    loop.  Per DoF (the Panda's row from phases 2 and 5) registers, spills,
+    resident warps, nvcc seconds, kernel and plain ms, lane-iterations per
+    solve and the bound; the run-time chain's rows add the scratch bytes
+    per lane and the library file, one for every chain.  ``panda`` is phase
+    6's Robot; ``ops_jobs`` the futures of the run-time arms' operation
+    counts.  Returns (paths, the lm_solve entry's "wide" object, whose
+    "launches" are (a)'s, and the lm_solve_runtime_chain entry's fields,
+    whose "launches" are (e)'s)."""
     import torch
 
     from optik_tpu_torch import Robot
@@ -1401,16 +1476,20 @@ def wide_phases(panda, robots, libs, cfg, qcfg, panda_row):
     t_phase = time.perf_counter()
     mobile = robots[11]
     rows = {"7": panda_row}
+    rt_rows = {}
     print("phase 18, per DoF (7: the Panda of phases 2 and 5):", flush=True)
     dof_line(7, panda_row)
 
-    def dof_row(a, plan, b, tr, tt, x0, lanes_p, plain_ms):
-        """The kernel's row of one chain: its Speed library's report, the
-        solver build's time and the bound of the work these inputs need."""
-        rep = lm_kernel.library_report(*libs[f"{a}-DoF speed"])
+    def dof_row(a, plan, b, tr, tt, x0, lanes_p, plain_ms, ops=None):
+        """The kernel's row of one chain in the plan's form: its Speed
+        library's report, the solver build's time and the bound of the
+        work these inputs need."""
+        lib = plan.library(plan.freeze)
+        rep = lm_kernel.library_report(*lib)
         ms = event_ms(lambda: lm_kernel.solve_kernel(plan, tr, tt, x0), 5)
         needed = int(lanes_p.active_iters.sum())
-        ops = lm_kernel.fp32_ops_per_lane_iter(plan)
+        if ops is None:
+            ops = lm_kernel.fp32_ops_per_lane_iter(plan)
         b_ms, b_by = bound(ops * needed, lm_bytes(a, b, plan.s, plan.r_total))
         row = {"B": b, "registers": rep["registers"],
                "spill_bytes": rep["spill_bytes"], "stack": rep["stack"],
@@ -1418,8 +1497,14 @@ def wide_phases(panda, robots, libs, cfg, qcfg, panda_row):
                "ms": ms, "plain_ms": plain_ms,
                "lane_iters_per_solve": needed / b, "fp32_ops_needed": ops,
                "bound_ms": b_ms, "bound_by": b_by}
-        rows[str(a)] = row
+        if plan.runtime_chain:
+            row.update(scratch_bytes_per_lane=lm_kernel.lane_scratch_bytes(
+                plan, lib[0]), library=rep["path"])
+            rt_rows[str(a)] = row
+        else:
+            rows[str(a)] = row
         dof_line(a, row)
+        return row
 
     def plain(plan, tr, tt, x0):
         out = []
@@ -1428,16 +1513,27 @@ def wide_phases(panda, robots, libs, cfg, qcfg, panda_row):
         return out[0], ms
 
     def full_width_checks(robot, plan, tr, tt, x0, lanes_p, what):
-        """Phase 5's checks of one chain's Speed kernel at B_MAIN: the
-        uncontracted build bitwise, the solver's build within phase 3's
-        limits; returns the pose difference on shared winners."""
+        """Phase 5's checks of one chain's Speed kernel: the uncontracted
+        build bitwise, the solver's build within phase 3's limits; returns
+        the pose difference on shared winners."""
+        b = x0.shape[0]
         lanes_equal(lm_kernel.solve_kernel(plan, tr, tt, x0, fmad=False),
-                    lanes_p, f"{what} @B={B_MAIN}")
-        print(f"{what}: uncontracted kernel vs plain @B={B_MAIN}: every "
+                    lanes_p, f"{what} @B={b}")
+        print(f"{what}: uncontracted kernel vs plain @B={b}: every "
               "lane's x, f, success, restart index and iterations bitwise "
               "equal", flush=True)
         _, err = compare_contracted(robot, lm_kernel, plan, tr, tt, x0,
                                     lanes_p, what)
+        return err
+
+    def runtime_record(a, robot, tr, tt, x0, lanes_p, plain_ms, ops):
+        """The run-time-chain form on a folded row's inputs, for the
+        record: the same checks, its time and its bound."""
+        plan = lm_kernel.KernelPlan(robot.spec, cfg, runtime_chain=True)
+        err = full_width_checks(robot, plan, tr, tt, x0, lanes_p,
+                                f"{a} DoF run-time chain")
+        dof_row(a, plan, x0.shape[0], tr, tt, x0, lanes_p, plain_ms,
+                ops)["pose_err"] = err
         return err
 
     # (a) The main path on the mobile Panda, through the entry points.
@@ -1468,51 +1564,139 @@ def wide_phases(panda, robots, libs, cfg, qcfg, panda_row):
     lanes_p, plain_ms = plain(plan, tr, tt, x0)
     max_err = full_width_checks(mobile, plan, tr, tt, x0, lanes_p,
                                 "mobile Panda main config")
-    dof_row(11, plan, B_MAIN, tr, tt, x0, lanes_p, plain_ms)
+    ops11 = dof_row(11, plan, B_MAIN, tr, tt, x0, lanes_p,
+                    plain_ms)["fp32_ops_needed"]
+    rt_err = runtime_record(11, mobile, tr, tt, x0, lanes_p, plain_ms, ops11)
     del lanes_p
     main_path = {"name": "mobile Panda 11-DoF ik_batch", "B": B_MAIN,
                  "config": MAIN, "launches": launches, "success": success,
                  "solves_per_s": B_MAIN / main_s, "fk_err": fk_err}
 
     # (b) Kernel against plain on the mobile Panda at B_CHECK.
-    wtr, wtt, wx0 = problem(mobile, B_CHECK, seed=19)
-    checks = {}
-    for name, c in (("Speed", cfg), ("Speed weighted",
-                                     cfg.replace(**WIDE_WEIGHTS)),
-                    ("Quality (256, 64)", qcfg)):
-        what = f"mobile Panda {name}"
-        cplan = lm_kernel.KernelPlan(mobile.spec, c)
-        lanes_p = lm_kernel.solve_plain(cplan, wtr, wtt, wx0)
-        lanes_equal(lm_kernel.solve_kernel(cplan, wtr, wtt, wx0, fmad=False),
-                    lanes_p, what)
-        k, err = compare_contracted(mobile, lm_kernel, cplan, wtr, wtt, wx0,
-                                    lanes_p, what)
-        p_rate = float(lm_kernel.select(cplan, lanes_p, wx0).found.float()
-                       .mean())
-        k_rate = float(k.found.float().mean())
-        check(abs(k_rate - p_rate) <= 1e-3, f"{what}: kernel success "
-              f"{k_rate} against plain {p_rate}")
-        max_err = max(max_err, err)
-        checks[name] = {"success": k_rate, "plain_success": p_rate,
-                        "pose_err": err}
-    print(f"mobile Panda @B={B_CHECK}: Speed, Speed with weights and Quality "
-          f"(256, 64, 48) uncontracted bitwise equal to plain in every lane, "
-          f"contracted within phase 3's limits, success within 0.001 of "
-          f"plain: " + ", ".join(f"{n} {v['success']:.6f} / "
-                                 f"{v['plain_success']:.6f}"
-                                 for n, v in checks.items()), flush=True)
+    def option_checks(robot, seed, cases, what):
+        """(b)'s checks at B_CHECK for each (name, config) of ``cases``:
+        uncontracted bitwise, contracted within phase 3's limits, success
+        within 0.001 of plain.  Returns ({name: result}, largest pose
+        difference)."""
+        wtr, wtt, wx0 = problem(robot, B_CHECK, seed=seed)
+        out, worst = {}, 0.0
+        for name, c in cases:
+            cplan = lm_kernel.KernelPlan(robot.spec, c)
+            lanes_p = lm_kernel.solve_plain(cplan, wtr, wtt, wx0)
+            lanes_equal(lm_kernel.solve_kernel(cplan, wtr, wtt, wx0,
+                                               fmad=False),
+                        lanes_p, f"{what} {name}")
+            k, err = compare_contracted(robot, lm_kernel, cplan, wtr, wtt,
+                                        wx0, lanes_p, f"{what} {name}")
+            p_rate = float(lm_kernel.select(cplan, lanes_p, wx0).found
+                           .float().mean())
+            k_rate = float(k.found.float().mean())
+            check(abs(k_rate - p_rate) <= 1e-3, f"{what} {name}: kernel "
+                  f"success {k_rate} against plain {p_rate}")
+            worst = max(worst, err)
+            out[name] = {"success": k_rate, "plain_success": p_rate,
+                         "pose_err": err}
+        print(f"{what} @B={B_CHECK}: " + ", ".join(out) + " uncontracted "
+              "bitwise equal to plain in every lane, contracted within "
+              "phase 3's limits, success within 0.001 of plain: "
+              + ", ".join(f"{n} {v['success']:.6f} / {v['plain_success']:.6f}"
+                          for n, v in out.items()), flush=True)
+        return out, worst
 
-    # (c) Where the per-lane state spills: 16 joints, and the widest chain,
-    # at the main shape (a full card, as the mobile Panda's row).
-    for a in (16, max(robots)):
+    checks, err = option_checks(
+        mobile, 19, (("Speed", cfg),
+                     ("Speed weighted", cfg.replace(**WIDE_WEIGHTS)),
+                     ("Quality (256, 64)", qcfg)), "mobile Panda")
+    max_err = max(max_err, err)
+
+    # (c) Where the per-lane state spills: 16 joints, and the widest folded
+    # chain, at the main shape (a full card, as the mobile Panda's row);
+    # the run-time chain on the same inputs.
+    for a in (16, lm_kernel.MAX_DOF):
         robot = robots[a]
         ctr, ctt, cx0 = problem(robot, B_MAIN, seed=20 + a)
         cplan = lm_kernel.KernelPlan(robot.spec, cfg)
         lanes_p, c_plain_ms = plain(cplan, ctr, ctt, cx0)
         max_err = max(max_err, full_width_checks(
             robot, cplan, ctr, ctt, cx0, lanes_p, f"{a} DoF main config"))
-        dof_row(a, cplan, B_MAIN, ctr, ctt, cx0, lanes_p, c_plain_ms)
+        ops = dof_row(a, cplan, B_MAIN, ctr, ctt, cx0, lanes_p,
+                      c_plain_ms)["fp32_ops_needed"]
+        rt_err = max(rt_err, runtime_record(a, robot, ctr, ctt, cx0, lanes_p,
+                                            c_plain_ms, ops))
         del lanes_p
+
+    # (e) The run-time chain's main path, and (g) no cap.
+    def runtime_main_path(a, b):
+        """ik_batch on an a-joint arm: five timed solves, one launch each,
+        no run of the plain loop; then the kernel against its plain
+        version on the same inputs, and the row."""
+        robot = robots[a]
+        rtr, rtt, rx0 = problem(robot, b, seed=a)
+
+        def solve():
+            return robot.ik_batch(cfg, rtr, rtt, rx0, validate_seeds=False,
+                                  rescue_overflow=False)
+
+        solve()  # warm: solver build, chain and seed-table upload
+        lm_kernel.LAUNCHES = 0
+        plain_runs = count_plain_loops()
+        results = []
+        try:
+            main_s = timed(lambda: results.append(solve()), runs)
+        finally:
+            n_plain = plain_runs()
+        n_launch = lm_kernel.LAUNCHES
+        check(n_launch == runs, f"the {a}-joint main path launched the "
+              f"kernel {n_launch} times in {runs} solves")
+        check(n_plain == 0, f"the {a}-joint main path ran the plain loop "
+              f"{n_plain} times")
+        res = results[-1]
+        rate = float(res.found.float().mean())
+        check(rate >= 0.99, f"{a}-joint main-path success {rate} < 0.99")
+        fk = check_solutions(robot, res, rtr, rtt, cfg.tol_f,
+                             f"{a}-joint main path")
+        print(f"{a}-joint arm (run-time chain) main path @B={b}: success "
+              f"{rate:.6f}, {b / main_s:.0f} solves/s (median of {runs}, "
+              f"{main_s * 1e3:.2f} ms/batch), "
+              f"{int(res.lane_iters) / b:.1f} lane-iters/solve run, FK err "
+              f"{fk:.3g}, launches {n_launch}, plain-loop runs {n_plain}",
+              flush=True)
+        rplan = lm_kernel.KernelPlan(robot.spec, cfg)
+        check(rplan.runtime_chain, f"{a} joints did not take the run-time "
+              "chain")
+        lanes_p, p_ms = plain(rplan, rtr, rtt, rx0)
+        err = full_width_checks(robot, rplan, rtr, rtt, rx0, lanes_p,
+                                f"{a} DoF main config")
+        row = dof_row(a, rplan, b, rtr, rtt, rx0, lanes_p, p_ms,
+                      ops_jobs[a].result())
+        row.update(pose_err=err, launches=n_launch)
+        path = {"name": f"{a}-joint arm ik_batch (run-time chain)", "B": b,
+                "config": MAIN, "launches": n_launch,
+                "plain_loop_runs": n_plain, "success": rate,
+                "solves_per_s": b / main_s, "fk_err": fk}
+        return path, err, n_launch
+
+    rt_paths, rt_launches = [], 0
+    for a in RUNTIME_MAIN_DOF:
+        path, err, n = runtime_main_path(a, B_MAIN)
+        rt_paths.append(path)
+        rt_err, rt_launches = max(rt_err, err), rt_launches + n
+
+    # (f) Weights and Quality on the run-time chain.
+    rt_checks, err = option_checks(
+        robots[RUNTIME_MAIN_DOF[0]], 21,
+        (("Speed weighted", cfg.replace(**WIDE_WEIGHTS)),
+         ("Quality (256, 64)", qcfg)), f"{RUNTIME_MAIN_DOF[0]}-joint arm")
+    rt_err = max(rt_err, err)
+
+    path, err, n = runtime_main_path(RUNTIME_NO_CAP_DOF, B_CHECK)
+    rt_paths.append(path)
+    rt_err = max(rt_err, err)
+    libraries = {r["library"] for r in rt_rows.values()}
+    check(len(libraries) == 1, f"the run-time chain's rows loaded "
+          f"{len(libraries)} Speed libraries: {sorted(libraries)}")
+    print(f"run-time chain: the rows of {', '.join(rt_rows)} joints all "
+          f"loaded {libraries.pop()}", flush=True)
 
     # (d) float64 on the card: the plain loop, by config.
     panda64 = Robot(panda.spec, dtype=torch.float64, device="cuda")
@@ -1551,7 +1735,16 @@ def wide_phases(panda, robots, libs, cfg, qcfg, panda_row):
     wide = {"dof": rows, "launches": launches, "max_abs_err": max_err,
             "mobile_panda": dict(main_path, checks=checks),
             "float64_launches": f64_launches, "phase_s": phase_s}
-    return [main_path, f64_path], wide
+    head = rt_rows[str(RUNTIME_MAIN_DOF[-1])]
+    runtime = {"launches": rt_launches, "max_abs_err": rt_err,
+               "ms": head["ms"], "plain_ms": head["plain_ms"],
+               "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+               "library_ms": None,
+               "library_ms_reason": "no single PyTorch call computes an LM "
+                                    "solve",
+               "headline": f"{RUNTIME_MAIN_DOF[-1]} joints, B={B_MAIN}",
+               "dof": rt_rows, "checks": rt_checks}
+    return [main_path, *rt_paths, f64_path], wide, runtime
 
 
 def main() -> int:
@@ -1590,8 +1783,15 @@ def main() -> int:
     cfg = SolverConfig(**MAIN)
     qcfg = SolverConfig.create("quality", **QUALITY)
     plan = lm_kernel.KernelPlan(robot.spec, cfg)
-    # Phase 18's chains: the mobile Panda, 16 joints and the widest.
+    # Phase 18's chains: the mobile Panda, 16 joints and the widest folded
+    # chain, and the run-time chain's arms, whose operation counts (the
+    # bound's numerator) a pool of spawned processes traces meanwhile.
     wrobots = wide_robots(Robot)
+    arms = (*RUNTIME_MAIN_DOF, RUNTIME_NO_CAP_DOF)
+    ops_pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=len(arms), mp_context=multiprocessing.get_context("spawn"))
+    ops_jobs = {a: ops_pool.submit(op_count, wrobots[a].spec, MAIN)
+                for a in arms}
     lm_variants = {
         "speed": (False, False, False, True),
         "speed uncontracted": (False, False, False, False),
@@ -1656,6 +1856,14 @@ def main() -> int:
     for name in ("fp32_peak", "warp_probe"):
         u = build.ptxas_usage(infos[name].ptxas)
         print(f"  {name} (first kernel): {usage_text(u)}", flush=True)
+    for name in ("runtime speed", "runtime speed weighted", "runtime quality"):
+        rep = lm_kernel.library_report(*libs[name])
+        print(f"  lm_solve {name} (every chain above {lm_kernel.MAX_DOF} "
+              f"joints): {rep['registers']} registers, {rep['stack']} B "
+              f"stack, {rep['spill_bytes']} B spilled, "
+              f"{rep['blocks_per_sm']} blocks resident per SM = "
+              f"{rep['warps_per_sm']} warps, nvcc {rep['nvcc_s']:.1f} s",
+              flush=True)
     main_use = build.ptxas_usage(infos["speed"].ptxas, "lm_solve_kernel")
     check(main_use["spill_stores"] == 0 and main_use["spill_loads"] == 0,
           "the Speed / identity-weights kernel spills")
@@ -1946,8 +2154,9 @@ def main() -> int:
                  "plain_ms": plain_ms, "lane_iters_per_solve": needed / B_MAIN,
                  "fp32_ops_needed": ops_iter, "bound_ms": lm_bound_ms,
                  "bound_by": lm_bound_by}
-    dof_paths, dof_entry = wide_phases(robot, wrobots, libs, cfg, qcfg,
-                                       panda_row)
+    dof_paths, dof_entry, rt_entry = wide_phases(robot, wrobots, cfg, qcfg,
+                                                 panda_row, ops_jobs)
+    ops_pool.shutdown()
 
     # 10a. fp32_peak: comparisons first (at the timed shape and depth,
     # where contraction has drifted; at the timed shape after a few trips;
@@ -2178,6 +2387,8 @@ def main() -> int:
          "phase16_launches": native_launches,
          "harness_launches": harness_launches,
          "build_wall_s": build_wall_s, "wide": dof_entry},
+        {"name": "lm_solve_runtime_chain", "route": "cuda", "source": lm_src,
+         "replaces": "optik_tpu/ops/pallas/lm_kernel.py:303", **rt_entry},
         {"name": "fp32_peak", "route": "cuda",
          "source": "optik_tpu_torch/csrc/fp32_peak.cu",
          "replaces": "benchmarks/bench_vpu_peak.py:73",

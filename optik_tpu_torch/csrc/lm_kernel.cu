@@ -1,6 +1,8 @@
 // Projected Levenberg-Marquardt IK solve for NVIDIA Hopper (sm_90a): one
 // thread per lane, persistent thread groups that draw poses from a work
-// queue, the robot's chain folded into the code when the library is built.
+// queue, and the robot's chain in one of two forms: folded into the code
+// when the library is built (1..32 joints), or read at run time
+// (OPTIK_RUNTIME_CHAIN, any number of joints; see "The run-time chain").
 //
 // Replaces the Pallas TPU kernel of
 // optik_tpu/ops/pallas/lm_kernel.py:build_kernel_solver (the body `kernel`,
@@ -78,9 +80,59 @@
 //     kernel math mode, rsqrtf in the Cholesky, IEEE division and sqrt (the
 //     library is built without --use_fast_math).
 //
+// The run-time chain (-DOPTIK_RUNTIME_CHAIN=1), for chains wider than a
+// folded library takes.  A folded chain is code: nvcc's time grows with the
+// DoF, every robot needs its own build, and every per-lane vector lives in
+// registers (x, the step, the carried and the trial Jacobian, 6 x A each),
+// which spill from 16 joints on and would need over 1,000 registers a
+// thread at 64.  So this family reads the chain as data and keeps the
+// per-lane vectors in device memory.  One instantiation file, not a second
+// source, because the loop (draws, damped step, Cholesky, Nielsen damping,
+// stops, reseeding, the Speed freeze, the Quality best and cap, the pair
+// exchange, the schedule probe) is one template over a Lane policy that
+// holds the A-long vectors: RegisterLane (folded, registers) or
+// ScratchLane (run-time, scratch).  Only the chain walk and the vectors
+// differ.
+//   * The chain is a float32 array (lm_kernel.py:pack_runtime_chain): a
+//     head (tip, has-tip, DoF) that the C entry copies into the kernel's
+//     parameters, then per joint its origin rotation and translation, axis,
+//     kind, and the products of two constants the plain version folds in
+//     double before they meet a lane (Rodrigues' -(k_a^2 + k_b^2) and
+//     k_a k_b), each rounded once, then the limits.  The kernel reads it
+//     through the read-only cache: every lane of a warp reads the same word.
+//   * The walk is a loop over a run-time DoF.  FK keeps one running frame
+//     and writes each joint's world axis and origin (6 floats) into the
+//     trial Jacobian's column slot; the column pass reads them and
+//     overwrites each with its column.  Every constant is a float operand,
+//     so a static 0 or +-1 of the plain version is a multiply by 0 or +-1
+//     here: the same value (up to the sign of a zero) in the same order.
+//     Where the plain version adds or multiplies two constants that come
+//     from different joints (a static frame carried over several joints)
+//     it rounds once in double and this walk rounds each float operation:
+//     bitwise equality with --fmad=false then holds only where no such
+//     fold happens (tests/test_torch_kernel_math.py holds the walk on
+//     several chains; PERF.md states what the card showed).
+//   * The per-lane vectors live in a scratch buffer the wrapper allocates
+//     (the kernel allocates nothing): word k of thread g at
+//     scratch[k * threads + g], threads the launch's persistent grid, so a
+//     warp's 32 lanes touch 32 consecutive words.  Two copies of x (A) and
+//     of J (6 A) alternate, the trial writing the copy not in use and an
+//     accepted step flipping which is current (no copy); Quality adds the
+//     caller's seed and the best x: 14 A words a lane in Speed, 16 A in
+//     Quality (3,584 / 4,096 B at 64 joints).  A lane-iteration moves
+//     33 A words: J J^T reads J (6 A); the step reads J and x and writes the
+//     trial x (8 A), with J step and the largest step entry in the same
+//     pass; FK reads the trial x and writes the frames (7 A); the column
+//     pass reads the frames and writes J (12 A): 8,448 B at 64 joints.
+//     The bound stays the operations the work needs; this design is held
+//     back by those bytes, most of which miss the 50 MB L2.
+//   * One library per (mode, weighted, two-warp exchange, contraction)
+//     serves every chain; optik_lm_variant() does not hold the DoF.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -I <dir of optik_chain.h> [-DOPTIK_QUALITY=1]
 //        [-DOPTIK_WEIGHTED=1] [-DOPTIK_WIDE=1] -o liblm_kernel.so lm_kernel.cu
+//        (-DOPTIK_RUNTIME_CHAIN=1 builds the run-time chain: no header)
 // The C entry point optik_lm_solve returns cudaGetLastError() after the
 // launch (or a negative code for invalid arguments) and is bound with ctypes.
 
@@ -88,7 +140,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#ifndef OPTIK_RUNTIME_CHAIN
+#define OPTIK_RUNTIME_CHAIN 0
+#endif
+#if !OPTIK_RUNTIME_CHAIN
 #include "optik_chain.h"
+#endif
 
 #ifndef OPTIK_QUALITY
 #define OPTIK_QUALITY 0
@@ -102,11 +159,12 @@
 
 namespace {
 
-constexpr int kDof = optik_chain::kDof;
-constexpr bool kHasTip = optik_chain::kHasTip;
 constexpr bool kQuality = OPTIK_QUALITY != 0;
 constexpr bool kWeighted = OPTIK_WEIGHTED != 0;
 constexpr bool kWide = OPTIK_WIDE != 0;
+#if !OPTIK_RUNTIME_CHAIN
+constexpr int kDof = optik_chain::kDof;
+constexpr bool kHasTip = optik_chain::kHasTip;
 // The widest chain a library is built for (lm_kernel.py:MAX_DOF).  Every
 // per-lane vector is kDof long, so nothing else in the kernel changes with
 // the width; what grows is nvcc's time (the joints are a template
@@ -118,25 +176,51 @@ constexpr bool kWide = OPTIK_WIDE != 0;
 constexpr int kMaxDof = 32;
 static_assert(kDof >= 1 && kDof <= kMaxDof, "the chain must have 1..32 joints");
 static_assert(kMaxDof < 256, "optik_lm_variant() holds kDof in 8 bits");
-constexpr int kNumOpts = 19;
-// A block is one pair of warps, the most threads one pose can take:
-// registers are granted per warp, so the smallest block wastes none.
-constexpr int kBlockThreads = 64;
-constexpr unsigned kFullMask = 0xffffffffu;
 
 // What of the chain stays run-time, as the host array lays it out: tip_r
 // (9), tip_t (3), has_tip (1), lower (A), upper (A).
 constexpr int kRuntimeFloats = 13 + 2 * kDof;
-
-constexpr float kEps = 1e-6f;       // Taylor switch (optik_tpu/math/so3.py)
-constexpr float kTiny = 1e-30f;
-constexpr float kPi = 3.14159265358979323846f;
 
 struct Runtime {
   float tip_r[9];
   float tip_t[3];
   float lower[kDof], upper[kDof];
 };
+#else
+// The chain array's head: tip_r (9), tip_t (3), has_tip (1), DoF (1); then
+// kJointFloats per joint, then lower (A), upper (A).
+constexpr int kRuntimeFloats = 14;
+// A joint's record: origin rotation (9, row-major), origin translation (3),
+// axis (3), kind (bit 0 prismatic; bit 1 + i: Rodrigues' diagonal entry i
+// is cos q, the axis lying in the plane of the other two), -(k_a^2 + k_b^2)
+// for each diagonal entry (3), kx ky, kx kz, ky kz (3).
+enum JointField { kOrgR = 0, kOrgT = 9, kAxis = 12, kKind = 15, kNegKK = 16,
+                  kAxisProd = 19, kJointFloats = 22 };
+
+struct Runtime {
+  float tip_r[9];
+  float tip_t[3];
+  int dof;
+  bool has_tip;
+  const float* joints;  // (dof, kJointFloats), device memory
+  const float* lower;   // (dof,)
+  const float* upper;   // (dof,)
+};
+
+// Scratch words a lane's vectors take (the word map is ScratchLane's).
+__host__ __device__ constexpr int lane_words(int dof) {
+  return (kQuality ? 16 : 14) * dof;
+}
+#endif
+constexpr int kNumOpts = 19;
+// A block is one pair of warps, the most threads one pose can take:
+// registers are granted per warp, so the smallest block wastes none.
+constexpr int kBlockThreads = 64;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+constexpr float kEps = 1e-6f;       // Taylor switch (optik_tpu/math/so3.py)
+constexpr float kTiny = 1e-30f;
+constexpr float kPi = 3.14159265358979323846f;
 
 struct Opts {
   int max_iters;
@@ -224,6 +308,7 @@ struct Zero {
 struct One {
   static __host__ __device__ constexpr double value() { return 1.0; }
 };
+#if !OPTIK_RUNTIME_CHAIN
 // The chain's constants (optik_chain.h) as static scalars.
 template <int J, int I>
 struct OrgR {
@@ -237,6 +322,7 @@ template <int J, int I>
 struct Axis {
   static __host__ __device__ constexpr double value() { return optik_chain::axis(J, I); }
 };
+#endif
 // Static with static folds in double, as Python folds two floats.
 template <class A>
 struct Neg {
@@ -678,6 +764,39 @@ __device__ __forceinline__ void weight3(const float* m, float v0, float v1, floa
   y2 = (m[6] * v0 + m[7] * v1) + m[8] * v2;
 }
 
+template <class V>
+__device__ __forceinline__ void store3(const V& v, float* out) {
+  out[0] = val(get<0>(v));
+  out[1] = val(get<1>(v));
+  out[2] = val(get<2>(v));
+}
+
+// The pose error of the end-effector frame (r, t) against the target
+// (tr, tt): e = log6(T_tgt^-1 T_ee) and the SE(3) right-Jacobian blocks
+// (jr, qq) the task Jacobian's columns need (soa.residual_and_jtask).
+template <class R, class T>
+__device__ __forceinline__ void pose_error(const float* tr, const float* tt, const R& r,
+                                           const T& t, float* e, float* jr, float* qq) {
+  // X = T_tgt^-1 * T_ee
+  const auto vtr = dyn9(tr);
+  const auto vxr = vmat_tmul(vtr, r);
+  const auto vxt = vmat_tvec(vtr, vec_sub(t, dyn3(tt)));
+  float xr[9], xt[3];
+  store3(tup(get<0>(vxr), get<1>(vxr), get<2>(vxr)), xr);
+  store3(tup(get<3>(vxr), get<4>(vxr), get<5>(vxr)), xr + 3);
+  store3(tup(get<6>(vxr), get<7>(vxr), get<8>(vxr)), xr + 6);
+  store3(vxt, xt);
+
+  float w_log[3];
+  Trig g;
+  rot_log_terms(xr, w_log, g);
+  const Coefs k = angle_coefs(g);
+  se3_log_trig(w_log, xt, k, e);
+  se3_right_jacobian_blocks(w_log, xt, g, k, jr, qq);
+}
+
+#if !OPTIK_RUNTIME_CHAIN
+
 // Joint J's constants as static scalars.
 template <int J>
 __device__ __forceinline__ auto origin_r() {
@@ -768,13 +887,6 @@ __device__ __forceinline__ void task_columns(const F& frames, const R& r, const 
   if constexpr (J + 1 < kDof) task_columns<J + 1>(frames, r, t, jr, qq, jt);
 }
 
-template <class V>
-__device__ __forceinline__ void store3(const V& v, float* out) {
-  out[0] = val(get<0>(v));
-  out[1] = val(get<1>(v));
-  out[2] = val(get<2>(v));
-}
-
 // `ml` / `ma` are the lane's weighting blocks R^T D_l R and R^T D_a R
 // (weighted instantiation only); `use_l` / `use_a` false leaves that half
 // unweighted, exactly as the plain version folds its static identity block.
@@ -790,25 +902,8 @@ __device__ __forceinline__ void residual_and_jtask(const Runtime& rt, const floa
   const auto ee = apply_tip(rt, get<0>(chain), get<1>(chain));
   const auto r = get<0>(ee);
   const auto t = get<1>(ee);
-
-  // X = T_tgt^-1 * T_ee
-  const auto vtr = dyn9(tr);
-  const auto vxr = vmat_tmul(vtr, r);
-  const auto vxt = vmat_tvec(vtr, vec_sub(t, dyn3(tt)));
-  float xr[9], xt[3];
-  store3(tup(get<0>(vxr), get<1>(vxr), get<2>(vxr)), xr);
-  store3(tup(get<3>(vxr), get<4>(vxr), get<5>(vxr)), xr + 3);
-  store3(tup(get<6>(vxr), get<7>(vxr), get<8>(vxr)), xr + 6);
-  store3(vxt, xt);
-
-  float w_log[3];
-  Trig g;
-  rot_log_terms(xr, w_log, g);
-  const Coefs k = angle_coefs(g);
-  se3_log_trig(w_log, xt, k, e);
-
   float jr[9], qq[9];
-  se3_right_jacobian_blocks(w_log, xt, g, k, jr, qq);
+  pose_error(tr, tt, r, t, e, jr, qq);
   task_columns<0>(frames, r, t, dyn9(jr), dyn9(qq), jt);
 
   if constexpr (WEIGHTED) {
@@ -829,6 +924,147 @@ __device__ __forceinline__ void residual_and_jtask(const Runtime& rt, const floa
   }
   f = e[0] * e[0] + e[1] * e[1] + e[2] * e[2] + e[3] * e[3] + e[4] * e[4] + e[5] * e[5];
 }
+
+#else  // OPTIK_RUNTIME_CHAIN
+
+// A lane's vector in scratch memory: entry k at p[k * stride], the launch's
+// threads interleaved (stride = threads of the grid).
+struct Strided {
+  float* p;
+  int stride;
+  __device__ __forceinline__ float& operator[](int k) const { return p[k * stride]; }
+};
+
+// Joint j's local frame (lr, lt) at joint value q, from its record, in the
+// operation order of soa.fk_joints and soa.rodrigues.
+__device__ __forceinline__ void local_frame_rt(const float* jc, float q, float* lr, float* lt) {
+  const int kind = (int)__ldg(jc + kKind);
+  float org[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) org[i] = __ldg(jc + kOrgR + i);
+  const float kx = __ldg(jc + kAxis), ky = __ldg(jc + kAxis + 1), kz = __ldg(jc + kAxis + 2);
+  if (kind & 1) {  // prismatic: lt = org_t + org_r (axis q)
+    const float ax[3] = {q * kx, q * ky, q * kz};
+#pragma unroll
+    for (int i = 0; i < 9; ++i) lr[i] = org[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      lt[i] = __ldg(jc + kOrgT + i) + ((org[3 * i] * ax[0] + org[3 * i + 1] * ax[1])
+                                        + org[3 * i + 2] * ax[2]);
+  } else {  // revolute: lr = org_r R(axis, q), R = I + sin(q) K + (1 - cos q) K^2
+    float s, c;
+    sincos_poly(q, s, c);
+    const float c1 = 1.0f - c;
+    const float pxy = __ldg(jc + kAxisProd), pxz = __ldg(jc + kAxisProd + 1),
+                pyz = __ldg(jc + kAxisProd + 2);
+    auto diag = [&](int i) {
+      return (kind >> (1 + i)) & 1 ? c : 1.0f + c1 * __ldg(jc + kNegKK + i);
+    };
+    const float rot[9] = {diag(0),          -kz * s + pxy * c1, ky * s + pxz * c1,
+                          kz * s + pxy * c1, diag(1),           -kx * s + pyz * c1,
+                          -ky * s + pxz * c1, kx * s + pyz * c1, diag(2)};
+    mat3_mul(org, rot, lr);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) lt[i] = __ldg(jc + kOrgT + i);
+  }
+}
+
+// residual_and_jtask over the run-time chain.  FK writes joint j's world
+// axis and origin into jt[6 j .. 6 j + 5]; the column pass replaces them
+// with column j of J_task (rows 0..5), weighted like the folded form's.
+template <bool WEIGHTED>
+__device__ __forceinline__ void residual_and_jtask_rt(const Runtime& rt, Strided q,
+                                                      const float* tr, const float* tt,
+                                                      const float* ml, const float* ma,
+                                                      bool use_l, bool use_a, float* e,
+                                                      Strided jt, float& f) {
+  float r[9], t[3];
+  for (int j = 0; j < rt.dof; ++j) {
+    const float* jc = rt.joints + j * kJointFloats;
+    float lr[9], lt[3];
+    local_frame_rt(jc, q[j], lr, lt);
+    if (j == 0) {
+#pragma unroll
+      for (int i = 0; i < 9; ++i) r[i] = lr[i];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) t[i] = lt[i];
+    } else {
+      float tn[3], rn[9];
+      mat3_vec(r, lt, tn);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) t[i] = tn[i] + t[i];
+      mat3_mul(r, lr, rn);
+#pragma unroll
+      for (int i = 0; i < 9; ++i) r[i] = rn[i];
+    }
+    const float axis[3] = {__ldg(jc + kAxis), __ldg(jc + kAxis + 1), __ldg(jc + kAxis + 2)};
+    float dir[3];
+    mat3_vec(r, axis, dir);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      jt[6 * j + i] = dir[i];
+      jt[6 * j + 3 + i] = t[i];
+    }
+  }
+  if (rt.has_tip) {  // the end-effector frame: the tip on the last joint's
+    float tn[3], rn[9];
+    mat3_vec(r, rt.tip_t, tn);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) t[i] = tn[i] + t[i];
+    mat3_mul(r, rt.tip_r, rn);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) r[i] = rn[i];
+  }
+  float jr[9], qq[9];
+  pose_error(tr, tt, dyn9(r), dyn3(t), e, jr, qq);
+
+  for (int j = 0; j < rt.dof; ++j) {
+    float dir[3], col[6];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) dir[i] = jt[6 * j + i];
+    float lin[3];  // the column's linear part in the EE frame
+    if ((int)__ldg(rt.joints + j * kJointFloats + kKind) & 1) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) lin[i] = (r[i] * dir[0] + r[3 + i] * dir[1]) + r[6 + i] * dir[2];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        col[i] = (jr[3 * i] * lin[0] + jr[3 * i + 1] * lin[1]) + jr[3 * i + 2] * lin[2];
+        col[3 + i] = 0.0f;
+      }
+    } else {
+      float d[3], lw[3], ang[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) d[i] = t[i] - jt[6 * j + 3 + i];
+      lw[0] = dir[1] * d[2] - dir[2] * d[1];
+      lw[1] = dir[2] * d[0] - dir[0] * d[2];
+      lw[2] = dir[0] * d[1] - dir[1] * d[0];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        lin[i] = (r[i] * lw[0] + r[3 + i] * lw[1]) + r[6 + i] * lw[2];
+        ang[i] = (r[i] * dir[0] + r[3 + i] * dir[1]) + r[6 + i] * dir[2];
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        col[i] = ((jr[3 * i] * lin[0] + jr[3 * i + 1] * lin[1]) + jr[3 * i + 2] * lin[2])
+                 + ((qq[3 * i] * ang[0] + qq[3 * i + 1] * ang[1]) + qq[3 * i + 2] * ang[2]);
+        col[3 + i] = (jr[3 * i] * ang[0] + jr[3 * i + 1] * ang[1]) + jr[3 * i + 2] * ang[2];
+      }
+    }
+    if constexpr (WEIGHTED) {
+      if (use_l) weight3(ml, col[0], col[1], col[2], col[0], col[1], col[2]);
+      if (use_a) weight3(ma, col[3], col[4], col[5], col[3], col[4], col[5]);
+    }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) jt[6 * j + i] = col[i];
+  }
+  if constexpr (WEIGHTED) {
+    if (use_l) weight3(ml, e[0], e[1], e[2], e[0], e[1], e[2]);
+    if (use_a) weight3(ma, e[3], e[4], e[5], e[3], e[4], e[5]);
+  }
+  f = e[0] * e[0] + e[1] * e[1] + e[2] * e[2] + e[3] * e[3] + e[4] * e[4] + e[5] * e[5];
+}
+
+#endif  // OPTIK_RUNTIME_CHAIN
 
 // --- the solve ----------------------------------------------------------------
 
@@ -868,7 +1104,327 @@ __device__ __forceinline__ int pair_draw(int* drawn, int parity, int* queue) {
   return *slot;
 }
 
-template <int A, bool QUALITY, bool WEIGHTED, bool WIDE>
+// --- a lane's A-long vectors ---------------------------------------------------
+//
+// The loop below is written once over a Lane: the policy that runs every
+// loop over the joints.  The loop declares its per-lane arrays with the
+// Lane's types, where and in the order the folded kernel always declared
+// them, and hands them to the Lane's methods: x and the trial point and
+// step (Vec), the carried and the trial J (Jac, 6 x A), Quality's seed and
+// best x (SeedVec).  For the folded chain these are the register arrays
+// themselves and each method is that kernel's code, so its build is the
+// one it was; the run-time chain's are empty placeholders (Unused) and its
+// vectors live in scratch.
+//   clear / clear_best / load / load_seed / store / store_best: the start,
+//   the draw and the write-out;  normal: J J^T + lam I;  step: the trial
+//   point from z = (J J^T + lam I)^-1 e (box-projected; a pending lane
+//   adopts its seed);  trial: residual and J at the trial point;  gain:
+//   J (trial - x);  accept: the trial becomes the lane's state;
+//   max_abs_step, seed_distance2, keep_best: the stops' and Quality's reads.
+//
+// The Quality distance is never contracted (__fmul_rn / __fadd_rn): it is
+// bitwise the one the winner selection computes outside the kernel
+// (solver/ik.seed_distance), so a lane's best and the pick among lanes
+// order attempts alike, on one card or split over several.
+
+#if !OPTIK_RUNTIME_CHAIN
+// The folded chain: every vector in registers, A fixed at build time.
+template <int A, bool QUALITY>
+struct RegisterLane {
+  using Vec = float[A];
+  using Step = float[A];
+  using Jac = float[6][A];
+  using SeedVec = float[QUALITY ? A : 1];
+
+  __device__ __forceinline__ RegisterLane(const Runtime&, float*) {}
+
+  __device__ __forceinline__ void clear(Vec& x, float* e, Jac& jt) const {
+#pragma unroll
+    for (int p = 0; p < A; ++p) x[p] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      e[i] = 0.0f;
+#pragma unroll
+      for (int p = 0; p < A; ++p) jt[i][p] = 0.0f;
+    }
+  }
+  __device__ __forceinline__ void clear_best(SeedVec& q0, SeedVec& bx) const {
+#pragma unroll
+    for (int p = 0; p < (QUALITY ? A : 1); ++p) q0[p] = bx[p] = 0.0f;
+  }
+  __device__ __forceinline__ void load(Vec& x, float* e, Jac& jt, const float* seeds,
+                                       int n_lanes, int l, bool live) const {
+#pragma unroll
+    for (int p = 0; p < A; ++p) x[p] = live ? seeds[p * n_lanes + l] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      e[i] = 0.0f;
+#pragma unroll
+      for (int p = 0; p < A; ++p) jt[i][p] = 0.0f;
+    }
+  }
+  __device__ __forceinline__ void load_seed(SeedVec& q0, SeedVec& bx, const float* qx0,
+                                            int n_pose, int pose, bool take) const {
+#pragma unroll
+    for (int p = 0; p < A; ++p) {
+      q0[p] = take ? qx0[p * n_pose + pose] : 0.0f;
+      bx[p] = 0.0f;
+    }
+  }
+  __device__ __forceinline__ void store(const Vec& x, float* x_out, int n_lanes,
+                                        int l) const {
+#pragma unroll
+    for (int p = 0; p < A; ++p) x_out[p * n_lanes + l] = x[p];
+  }
+  __device__ __forceinline__ void store_best(const SeedVec& bx, float* x_out, int n_lanes,
+                                             int l) const {
+#pragma unroll
+    for (int p = 0; p < A; ++p) x_out[p * n_lanes + l] = bx[p];
+  }
+  __device__ __forceinline__ void normal(const Jac& jt, float jjt[6][6], float lam) const {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+#pragma unroll
+      for (int k = 0; k <= i; ++k) {
+        float v = jt[i][0] * jt[k][0];
+#pragma unroll
+        for (int p = 1; p < A; ++p) v = v + jt[i][p] * jt[k][p];
+        jjt[i][k] = v;
+        jjt[k][i] = v;
+      }
+      jjt[i][i] = jjt[i][i] + lam;
+    }
+  }
+  __device__ __forceinline__ void step(const Vec& x, const Jac& jt, Vec& xn, Step& step,
+                                       const Runtime& rt, const float* z, bool pending,
+                                       bool from_table, const float* table,
+                                       int cur_idx) const {
+#pragma unroll
+    for (int p = 0; p < A; ++p) {
+      float d = jt[0][p] * z[0];
+#pragma unroll
+      for (int i = 1; i < 6; ++i) d = d + jt[i][p] * z[i];
+      float v = x[p] + (-d);
+      v = v < rt.lower[p] ? rt.lower[p] : v;   // NaN stays NaN, as jnp.clip
+      v = v > rt.upper[p] ? rt.upper[p] : v;
+      if (pending) v = from_table ? table[cur_idx * A + p] : x[p];
+      xn[p] = v;
+      step[p] = v - x[p];
+    }
+  }
+  template <bool WEIGHTED>
+  __device__ __forceinline__ void trial(const Vec& xn, const Runtime& rt, const float* tr,
+                                        const float* tt, const float* ml, const float* ma,
+                                        bool use_l, bool use_a, float* e_new, Jac& jt_new,
+                                        float& f_new) const {
+    residual_and_jtask<A, WEIGHTED>(rt, xn, tr, tt, ml, ma, use_l, use_a, e_new, jt_new,
+                                    f_new);
+  }
+  __device__ __forceinline__ void gain(const Jac& jt, const Step& step, float* w) const {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      float v = jt[i][0] * step[0];
+#pragma unroll
+      for (int p = 1; p < A; ++p) v = v + jt[i][p] * step[p];
+      w[i] = v;
+    }
+  }
+  __device__ __forceinline__ void accept(Vec& x, const Vec& xn, float* e, const float* e_new,
+                                         Jac& jt, const Jac& jt_new) const {
+#pragma unroll
+    for (int p = 0; p < A; ++p) x[p] = xn[p];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      e[i] = e_new[i];
+#pragma unroll
+      for (int p = 0; p < A; ++p) jt[i][p] = jt_new[i][p];
+    }
+  }
+  __device__ __forceinline__ float max_abs_step(const Step& step) const {
+    float adx = fabsf(step[0]);
+#pragma unroll
+    for (int p = 1; p < A; ++p) adx = nmax(adx, fabsf(step[p]));
+    return adx;
+  }
+  __device__ __forceinline__ float seed_distance2(const Vec& x, const SeedVec& q0) const {
+    const float e0 = x[0] - q0[0];
+    float d2 = __fmul_rn(e0, e0);
+#pragma unroll
+    for (int p = 1; p < A; ++p) {
+      const float e = x[p] - q0[p];
+      d2 = __fadd_rn(d2, __fmul_rn(e, e));
+    }
+    return d2;
+  }
+  __device__ __forceinline__ void keep_best(const Vec& x, SeedVec& bx) const {
+#pragma unroll
+    for (int p = 0; p < A; ++p) bx[p] = x[p];
+  }
+};
+#else
+// The run-time chain: every vector in the scratch buffer, words
+//   [c A, c A + A)                 x, copy c (c = 0, 1)
+//   [2 A + 6 c A, 2 A + 6 c A + 6 A)  J, copy c: column j at 6 j .. 6 j + 5
+//   [14 A, 15 A), [15 A, 16 A)     Quality: the caller's seed, the best x
+// of this thread, interleaved with the grid's other threads.  `cur` is the
+// copy that holds the lane's state; the trial writes the other and an
+// accepted step flips it.  The loop's arrays are placeholders, but for the
+// step: step() forms J (trial - x) and the largest step entry there in its
+// one pass, and gain() and max_abs_step() read them back.
+struct Unused {};
+
+template <bool QUALITY>
+struct ScratchLane {
+  using Vec = Unused;
+  using Jac = Unused;
+  using SeedVec = Unused;
+  struct Step {
+    float w[6], adx;
+  };
+  float* m;
+  int s, a, cur;
+
+  __device__ __forceinline__ ScratchLane(const Runtime& rt, float* scratch)
+      : m(scratch + blockIdx.x * blockDim.x + threadIdx.x), s(gridDim.x * blockDim.x),
+        a(rt.dof), cur(0) {}
+
+  __device__ __forceinline__ Strided x_copy(int c) const { return {m + c * a * s, s}; }
+  __device__ __forceinline__ Strided j_copy(int c) const { return {m + (2 + 6 * c) * a * s, s}; }
+  __device__ __forceinline__ Strided q0() const { return {m + 14 * a * s, s}; }
+  __device__ __forceinline__ Strided bx() const { return {m + 15 * a * s, s}; }
+
+  __device__ __forceinline__ void clear(Vec&, float* e, Jac&) {
+    cur = 0;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) e[i] = 0.0f;
+  }
+  __device__ __forceinline__ void clear_best(SeedVec&, SeedVec&) const {}
+  __device__ __forceinline__ void load(Vec&, float* e, Jac&, const float* seeds, int n_lanes,
+                                       int l, bool live) {
+    cur = 0;
+    const Strided x = x_copy(0), jt = j_copy(0);
+    for (int p = 0; p < a; ++p) x[p] = live ? seeds[p * n_lanes + l] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) e[i] = 0.0f;
+    for (int k = 0; k < 6 * a; ++k) jt[k] = 0.0f;
+  }
+  __device__ __forceinline__ void load_seed(SeedVec&, SeedVec&, const float* qx0, int n_pose,
+                                            int pose, bool take) const {
+    const Strided q = q0(), b = bx();
+    for (int p = 0; p < a; ++p) {
+      q[p] = take ? qx0[p * n_pose + pose] : 0.0f;
+      b[p] = 0.0f;
+    }
+  }
+  __device__ __forceinline__ void store(const Vec&, float* x_out, int n_lanes, int l) const {
+    const Strided x = x_copy(cur);
+    for (int p = 0; p < a; ++p) x_out[p * n_lanes + l] = x[p];
+  }
+  __device__ __forceinline__ void store_best(const SeedVec&, float* x_out, int n_lanes,
+                                             int l) const {
+    const Strided b = bx();
+    for (int p = 0; p < a; ++p) x_out[p * n_lanes + l] = b[p];
+  }
+  // One pass over J: the 21 sums of J J^T side by side, each in p order.
+  __device__ __forceinline__ void normal(const Jac&, float jjt[6][6], float lam) const {
+    const Strided jt = j_copy(cur);
+    float acc[21];
+    auto column = [&](int p, bool first) {
+      float c[6];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) c[i] = jt[6 * p + i];
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+#pragma unroll
+        for (int k = 0; k <= i; ++k) {
+          const int n = i * (i + 1) / 2 + k;
+          acc[n] = first ? c[i] * c[k] : acc[n] + c[i] * c[k];
+        }
+    };
+    column(0, true);
+    for (int p = 1; p < a; ++p) column(p, false);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+#pragma unroll
+      for (int k = 0; k <= i; ++k) {
+        jjt[i][k] = acc[i * (i + 1) / 2 + k];
+        jjt[k][i] = acc[i * (i + 1) / 2 + k];
+      }
+      jjt[i][i] = jjt[i][i] + lam;
+    }
+  }
+  __device__ __forceinline__ void step(const Vec&, const Jac&, Vec&, Step& st,
+                                       const Runtime& rt, const float* z, bool pending,
+                                       bool from_table, const float* table,
+                                       int cur_idx) const {
+    const Strided jt = j_copy(cur), x = x_copy(cur), xn = x_copy(cur ^ 1);
+    auto entry = [&](int p, bool first) {
+      float c[6];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) c[i] = jt[6 * p + i];
+      float d = c[0] * z[0];
+#pragma unroll
+      for (int i = 1; i < 6; ++i) d = d + c[i] * z[i];
+      const float xp = x[p];
+      const float lo = __ldg(rt.lower + p), hi = __ldg(rt.upper + p);
+      float v = xp + (-d);
+      v = v < lo ? lo : v;   // NaN stays NaN, as jnp.clip
+      v = v > hi ? hi : v;
+      if (pending) v = from_table ? table[cur_idx * a + p] : xp;
+      xn[p] = v;
+      const float dx = v - xp;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) st.w[i] = first ? c[i] * dx : st.w[i] + c[i] * dx;
+      st.adx = first ? fabsf(dx) : nmax(st.adx, fabsf(dx));
+    };
+    entry(0, true);
+    for (int p = 1; p < a; ++p) entry(p, false);
+  }
+  template <bool WEIGHTED>
+  __device__ __forceinline__ void trial(const Vec&, const Runtime& rt, const float* tr,
+                                        const float* tt, const float* ml, const float* ma,
+                                        bool use_l, bool use_a, float* e_new, Jac&,
+                                        float& f_new) const {
+    residual_and_jtask_rt<WEIGHTED>(rt, x_copy(cur ^ 1), tr, tt, ml, ma, use_l, use_a, e_new,
+                                    j_copy(cur ^ 1), f_new);
+  }
+  __device__ __forceinline__ void gain(const Jac&, const Step& st, float* w) const {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) w[i] = st.w[i];
+  }
+  __device__ __forceinline__ void accept(Vec&, const Vec&, float* e, const float* e_new, Jac&,
+                                         const Jac&) {
+    cur ^= 1;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) e[i] = e_new[i];
+  }
+  __device__ __forceinline__ float max_abs_step(const Step& st) const { return st.adx; }
+  __device__ __forceinline__ float seed_distance2(const Vec&, const SeedVec&) const {
+    const Strided x = x_copy(cur), q = q0();
+    const float e0 = x[0] - q[0];
+    float d2 = __fmul_rn(e0, e0);
+    for (int p = 1; p < a; ++p) {
+      const float e = x[p] - q[p];
+      d2 = __fadd_rn(d2, __fmul_rn(e, e));
+    }
+    return d2;
+  }
+  __device__ __forceinline__ void keep_best(const Vec&, SeedVec&) const {
+    const Strided x = x_copy(cur), b = bx();
+    for (int p = 0; p < a; ++p) b[p] = x[p];
+  }
+};
+#endif
+
+#if !OPTIK_RUNTIME_CHAIN
+using KernelLane = RegisterLane<kDof, kQuality>;
+#else
+using KernelLane = ScratchLane<kQuality>;
+#endif
+
+// The loop: one thread per lane, thread groups drawing poses (see the head
+// of this file).
+template <class Lane, bool QUALITY, bool WEIGHTED, bool WIDE>
 __global__ void __launch_bounds__(kBlockThreads)
 lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, int s_lanes,
                 int s_pad, int total_restarts, int reseed, int freeze, int max_total_iters,
@@ -884,7 +1440,8 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
                 int* __restrict__ queue,           // (1,) next pose index, starts at 0
                 int* __restrict__ pose_iters,      // (B, warps of a group): iterations * S
                 int* __restrict__ warp_trips,      // (launched warps,)
-                unsigned long long* __restrict__ times) {  // (launched warps, 3)
+                unsigned long long* __restrict__ times,  // (launched warps, 3)
+                float* __restrict__ scratch) {  // ScratchLane's words (run-time chain)
   const int lane = threadIdx.x & 31;
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const bool two_warps = s_pad == 64;
@@ -912,31 +1469,27 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
   bool dead = false;
   int l = 0;  // the lane's output slot, read only while it holds a pose
 
-  // Per-lane state; set anew at every draw.
+  // Per-lane state; set anew at every draw.  The A-long vectors have the
+  // Lane's types (see above).
+  Lane vec(rt, scratch);
   float tr[9], tt[3];
   float ml[WEIGHTED ? 9 : 1], ma[WEIGHTED ? 9 : 1];
-  float x[A], e[6], jt[6][A];
+  typename Lane::Vec x;
+  float e[6];
+  typename Lane::Jac jt;
 #pragma unroll
   for (int i = 0; i < 9; ++i) tr[i] = i % 4 == 0 ? 1.0f : 0.0f;
 #pragma unroll
   for (int i = 0; i < 3; ++i) tt[i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < (WEIGHTED ? 9 : 1); ++i) ml[i] = ma[i] = 0.0f;
-#pragma unroll
-  for (int p = 0; p < A; ++p) x[p] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    e[i] = 0.0f;
-#pragma unroll
-    for (int p = 0; p < A; ++p) jt[i][p] = 0.0f;
-  }
+  vec.clear(x, e, jt);
   float f = INFINITY, lam = o.lam_init, nu = 2.0f;
   bool stopped = true, success = false, pending = true;
   int cur_idx = 0, it_lane = 0, succ_it = 0;
   // Quality: the caller's seed and the lane's best success so far.
-  float q0[QUALITY ? A : 1], bx[QUALITY ? A : 1];
-#pragma unroll
-  for (int p = 0; p < (QUALITY ? A : 1); ++p) q0[p] = bx[p] = 0.0f;
+  typename Lane::SeedVec q0, bx;
+  vec.clear_best(q0, bx);
   float bd = INFINITY, bf = INFINITY;
   int bi = 0, succ_cnt = 0;
 
@@ -963,14 +1516,12 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
         if (seed == half * 32) pose_iters[two_warps ? pose * 2 + half : pose] = it * s_lanes;
         if (has_lane) {
           if (track_best) {
-#pragma unroll
-            for (int p = 0; p < A; ++p) x_out[p * n_lanes + l] = bx[p];
+            vec.store_best(bx, x_out, n_lanes, l);
             f_out[l] = bf;
             succ_out[l] = isfinite(bd) ? 1 : 0;
             idx_out[l] = bi;
           } else {
-#pragma unroll
-            for (int p = 0; p < A; ++p) x_out[p * n_lanes + l] = x[p];
+            vec.store(x, x_out, n_lanes, l);
             f_out[l] = f;
             succ_out[l] = success ? 1 : 0;
             idx_out[l] = reseed ? cur_idx : seed;
@@ -1010,14 +1561,7 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
                               + (tr[6 + i] * o.wa[2]) * tr[6 + j];
             }
         }
-#pragma unroll
-        for (int p = 0; p < A; ++p) x[p] = live ? seeds[p * n_lanes + l] : 0.0f;
-#pragma unroll
-        for (int i = 0; i < 6; ++i) {
-          e[i] = 0.0f;
-#pragma unroll
-          for (int p = 0; p < A; ++p) jt[i][p] = 0.0f;
-        }
+        vec.load(x, e, jt, seeds, n_lanes, l, live);
         f = INFINITY;
         lam = o.lam_init;
         nu = 2.0f;
@@ -1028,11 +1572,7 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
         it_lane = 0;
         succ_it = 0;
         if constexpr (QUALITY) {
-#pragma unroll
-          for (int p = 0; p < A; ++p) {
-            q0[p] = (track_best && live) ? qx0[p * n_pose + pose] : 0.0f;
-            bx[p] = 0.0f;
-          }
+          vec.load_seed(q0, bx, qx0, n_pose, pose, track_best && live);
           bd = INFINITY;
           bf = INFINITY;
           bi = 0;
@@ -1050,54 +1590,28 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
     // Damped GN step from the carried (e, J):
     // delta = -J^T (J J^T + lam I)^-1 e.
     float jjt[6][6];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-#pragma unroll
-      for (int k = 0; k <= i; ++k) {
-        float v = jt[i][0] * jt[k][0];
-#pragma unroll
-        for (int p = 1; p < A; ++p) v = v + jt[i][p] * jt[k][p];
-        jjt[i][k] = v;
-        jjt[k][i] = v;
-      }
-      jjt[i][i] = jjt[i][i] + lam;
-    }
+    vec.normal(jt, jjt, lam);
     float z[6];
     cholesky_solve6(jjt, e, z);
 
-    float xn[A], step[A];
-#pragma unroll
-    for (int p = 0; p < A; ++p) {
-      float d = jt[0][p] * z[0];
-#pragma unroll
-      for (int i = 1; i < 6; ++i) d = d + jt[i][p] * z[i];
-      float v = x[p] + (-d);
-      v = v < rt.lower[p] ? rt.lower[p] : v;   // NaN stays NaN, as jnp.clip
-      v = v > rt.upper[p] ? rt.upper[p] : v;
-      // Pending lanes adopt a point instead of stepping: the initial seed
-      // on the pose's first iteration, or the next stride seed.
-      if (pending) v = (reseed && it != 0) ? table[cur_idx * A + p] : x[p];
-      xn[p] = v;
-      step[p] = v - x[p];
-    }
+    // Pending lanes adopt a point instead of stepping: the initial seed on
+    // the pose's first iteration, or the next stride seed.
+    typename Lane::Vec xn;
+    typename Lane::Step step;
+    vec.step(x, jt, xn, step, rt, z, pending, reseed && it != 0, table, cur_idx);
 
     // ONE fused evaluation: trial cost + the next step's Jacobian.
-    float e_new[6], jt_new[6][A], f_new;
-    residual_and_jtask<A, WEIGHTED>(rt, xn, tr, tt, ml, ma, use_l, use_a, e_new, jt_new,
-                                    f_new);
+    float e_new[6];
+    typename Lane::Jac jt_new;
+    float f_new;
+    vec.template trial<WEIGHTED>(xn, rt, tr, tt, ml, ma, use_l, use_a, e_new, jt_new, f_new);
 
     const bool finite = isfinite(f_new);
     const bool accept = ((f_new < f) || pending) && finite;
 
     // Nielsen gain ratio on the projected step.
     float w[6];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      float v = jt[i][0] * step[0];
-#pragma unroll
-      for (int p = 1; p < A; ++p) v = v + jt[i][p] * step[p];
-      w[i] = v;
-    }
+    vec.gain(jt, step, w);
     float ew = e[0] * w[0], ww = w[0] * w[0];
 #pragma unroll
     for (int i = 1; i < 6; ++i) {
@@ -1113,14 +1627,7 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
     const bool keep = stopped || !accept;
     const float f_old = f;
     if (!keep) {
-#pragma unroll
-      for (int p = 0; p < A; ++p) x[p] = xn[p];
-#pragma unroll
-      for (int i = 0; i < 6; ++i) {
-        e[i] = e_new[i];
-#pragma unroll
-        for (int p = 0; p < A; ++p) jt[i][p] = jt_new[i][p];
-      }
+      vec.accept(x, xn, e, e_new, jt, jt_new);
       f = f_new;
     }
 
@@ -1141,9 +1648,7 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
     const bool newly_df = accept && (df < o.tol_df) && !pending;
     bool newly_dx = false;
     if (o.use_dx) {
-      float adx = fabsf(step[0]);
-#pragma unroll
-      for (int p = 1; p < A; ++p) adx = nmax(adx, fabsf(step[p]));
+      const float adx = vec.max_abs_step(step);
       newly_dx = accept && (adx < o.tol_dx) && !pending;
     }
     const bool newly_stuck = lam_next >= o.lam_max;
@@ -1162,21 +1667,9 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
       if (track_best) {
         // Record this attempt's solution if it is the lane's best success so
         // far (least distance to the caller's seed), then keep exploring.
-        // The distance is never contracted (__fmul_rn / __fadd_rn): it is
-        // bitwise the one the winner selection computes outside the kernel
-        // (solver/ik.seed_distance), so a lane's best and the pick among
-        // lanes order attempts alike, on one card or split over several.
-        const float e0 = x[0] - q0[0];
-        float d2 = __fmul_rn(e0, e0);
-#pragma unroll
-        for (int p = 1; p < A; ++p) {
-          const float e = x[p] - q0[p];
-          d2 = __fadd_rn(d2, __fmul_rn(e, e));
-        }
-        const float d = sqrtf(d2);
+        const float d = sqrtf(vec.seed_distance2(x, q0));
         if (run && succ_now && (d < bd)) {
-#pragma unroll
-          for (int p = 0; p < A; ++p) bx[p] = x[p];
+          vec.keep_best(x, bx);
           bd = d;
           bf = f;
           bi = cur_idx;
@@ -1267,7 +1760,7 @@ int resident_blocks(int* per_sm) {
     if (cudaGetDevice(&dev) != cudaSuccess
         || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess
         || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-               &n, lm_solve_kernel<kDof, kQuality, kWeighted, kWide>, kBlockThreads, 0)
+               &n, lm_solve_kernel<KernelLane, kQuality, kWeighted, kWide>, kBlockThreads, 0)
                != cudaSuccess)
       return 0;
     cached_per_sm = n;
@@ -1295,14 +1788,26 @@ int grid_blocks(int n_pose, int s_pad) {
 extern "C" {
 
 int optik_lm_block_threads() { return kBlockThreads; }
+// The host chain array's length: folded 13 + 2 A; run-time chain its head,
+// after which come optik_lm_joint_floats() per joint and the limits.
 int optik_lm_runtime_floats() { return kRuntimeFloats; }
 int optik_lm_num_opts() { return kNumOpts; }
+#if !OPTIK_RUNTIME_CHAIN
+int optik_lm_joint_floats() { return 0; }
 // This library's instantiation: dof | quality << 8 | weighted << 9 |
 // wide << 10 | has_tip << 11.
 int optik_lm_variant() {
   return kDof | (kQuality ? 1 << 8 : 0) | (kWeighted ? 1 << 9 : 0) | (kWide ? 1 << 10 : 0)
          | (kHasTip ? 1 << 11 : 0);
 }
+#else
+int optik_lm_joint_floats() { return kJointFloats; }
+// This library's instantiation: quality << 8 | weighted << 9 | wide << 10 |
+// 1 << 12 (the run-time chain: no DoF, no tip).
+int optik_lm_variant() {
+  return (kQuality ? 1 << 8 : 0) | (kWeighted ? 1 << 9 : 0) | (kWide ? 1 << 10 : 0) | 1 << 12;
+}
+#endif
 // Resident blocks per SM of the kernel on the current device (0: the query
 // failed), and the blocks a launch over n_pose poses uses.
 int optik_lm_blocks_per_sm() {
@@ -1312,6 +1817,17 @@ int optik_lm_blocks_per_sm() {
 }
 int optik_lm_grid(int n_pose, int s_pad) {
   return (n_pose < 1 || !pad_ok(s_pad)) ? 0 : grid_blocks(n_pose, s_pad);
+}
+// The scratch floats a launch over n_pose poses of a dof-joint chain needs:
+// the run-time chain's per-lane vectors for every thread of its grid (the
+// folded chain needs none: 0); -1 for invalid arguments.
+long long optik_lm_scratch_words(int n_pose, int s_pad, int dof) {
+  if (n_pose < 1 || !pad_ok(s_pad) || dof < 1) return -1;
+#if !OPTIK_RUNTIME_CHAIN
+  return 0;
+#else
+  return (long long)grid_blocks(n_pose, s_pad) * kBlockThreads * lane_words(dof);
+#endif
 }
 
 const char* optik_lm_error_string(int code) {
@@ -1323,14 +1839,21 @@ const char* optik_lm_error_string(int code) {
 // success) or -1 for invalid arguments.  `chain` and `opts` are host
 // arrays (copied into the kernel's parameters).  `chain` holds what of the
 // chain stays run-time: tip_r (9), tip_t (3), has_tip (1, must match the
-// library), lower (A), upper (A).  `opts` holds max_iters, tol_f, tol_df,
+// folded library), then for the folded chain lower (A), upper (A); for the
+// run-time chain the DoF (1), the joints' records (A x
+// optik_lm_joint_floats()), lower (A), upper (A), and `dev_chain` is the
+// same array in device memory, from which the kernel reads the joints and
+// the limits.  `opts` holds max_iters, tol_f, tol_df,
 // tol_dx, f_is_success, df_is_success, dx_is_success, lam_init, lam_min,
 // lam_max, linear weights (3), angular weights (3), linear-is-identity,
 // angular-is-identity, quality success cap.  Every other pointer is device
 // memory.  A pose's `s_lanes` lanes occupy `s_pad` threads (a divisor of 32,
 // or 64); `freeze` turns the Speed-mode group stop on.  `qx0` is read only
 // by the Quality instantiation with reseeding.  `queue` is one int, zeroed
-// here on `stream` before the launch.  The kernel writes x_out, f_out,
+// here on `stream` before the launch.  `scratch` holds `scratch_words`
+// floats, at least optik_lm_scratch_words(n_pose, s_pad, A) (the run-time
+// chain's per-lane vectors; the folded chain reads neither it nor
+// `dev_chain`).  The kernel writes x_out, f_out,
 // succ_out, idx_out and sit_out for the n_pose * s_lanes lanes, pose_iters
 // for every pose (the iterations its group ran times s_lanes; two entries
 // per pose when s_pad is 64, one per warp), and
@@ -1341,10 +1864,21 @@ int optik_lm_solve(const float* chain, int chain_len, const float* opts, int n_o
                    int freeze, const float* seeds, const float* tgt, const float* table,
                    const float* qx0, float* x_out, float* f_out, int8_t* succ_out,
                    int* idx_out, int* sit_out, int* queue, int* pose_iters,
-                   int* warp_trips, unsigned long long* times, void* stream) {
-  if (chain_len != kRuntimeFloats || n_opts != kNumOpts || n_pose < 1 || s_lanes < 1
+                   int* warp_trips, unsigned long long* times, const float* dev_chain,
+                   float* scratch, long long scratch_words, void* stream) {
+#if !OPTIK_RUNTIME_CHAIN
+  const int dof = kDof;
+  if (chain_len != kRuntimeFloats || (chain[12] > 0.5f) != kHasTip) return -1;
+#else
+  if (chain_len < kRuntimeFloats) return -1;
+  const int dof = (int)chain[13];
+  if (dof < 1 || chain_len != kRuntimeFloats + (kJointFloats + 2) * dof
+      || dev_chain == nullptr || scratch == nullptr)
+    return -1;
+#endif
+  if (n_opts != kNumOpts || n_pose < 1 || s_lanes < 1
       || !pad_ok(s_pad) || s_lanes > s_pad || total_restarts < s_lanes
-      || (long long)n_pose * s_pad * kDof > 0x7fffffffLL || (chain[12] > 0.5f) != kHasTip)
+      || (long long)n_pose * s_pad * dof > 0x7fffffffLL)
     return -1;
   Opts o;
   o.max_iters = (int)opts[0];
@@ -1376,19 +1910,32 @@ int optik_lm_solve(const float* chain, int chain_len, const float* opts, int n_o
   Runtime rt;
   for (int i = 0; i < 9; ++i) rt.tip_r[i] = chain[i];
   for (int i = 0; i < 3; ++i) rt.tip_t[i] = chain[9 + i];
+#if !OPTIK_RUNTIME_CHAIN
   for (int j = 0; j < kDof; ++j) {
     rt.lower[j] = chain[13 + j];
     rt.upper[j] = chain[13 + kDof + j];
   }
+#else
+  rt.dof = dof;
+  rt.has_tip = chain[12] > 0.5f;
+  rt.joints = dev_chain + kRuntimeFloats;
+  rt.lower = rt.joints + kJointFloats * dof;
+  rt.upper = rt.lower + dof;
+#endif
   const int blocks = grid_blocks(n_pose, s_pad);
   if (blocks < 1) return (int)cudaErrorUnknown;
+#if OPTIK_RUNTIME_CHAIN
+  // The scratch holds every thread's words, addressed in 32 bits.
+  const long long need = (long long)blocks * kBlockThreads * lane_words(dof);
+  if (scratch_words < need || need > 0x7fffffffLL) return -1;
+#endif
   cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t zeroed = cudaMemsetAsync(queue, 0, sizeof(int), st);
   if (zeroed != cudaSuccess) return (int)zeroed;
-  lm_solve_kernel<kDof, kQuality, kWeighted, kWide><<<blocks, kBlockThreads, 0, st>>>(
+  lm_solve_kernel<KernelLane, kQuality, kWeighted, kWide><<<blocks, kBlockThreads, 0, st>>>(
       rt, o, n_pose, s_lanes, s_pad, total_restarts, reseed, freeze, max_total_iters, seeds,
       tgt, table, qx0, x_out, f_out, succ_out, idx_out, sit_out, queue, pose_iters,
-      warp_trips, times);
+      warp_trips, times, scratch);
   return (int)cudaGetLastError();
 }
 

@@ -71,6 +71,16 @@ def build_key(source: pathlib.Path, flags: Sequence[str],
     return digest.hexdigest()[:16]
 
 
+def library_path(source: pathlib.Path, flags: Sequence[str] = (),
+                 fmad: bool = True,
+                 headers: Optional[Mapping[str, str]] = None) -> pathlib.Path:
+    """Where :func:`build_library` puts the library of these arguments
+    (nothing is built)."""
+    flags = NVCC_FLAGS + tuple(flags) + (() if fmad else ("--fmad=false",))
+    key = build_key(source, flags, dict(headers or {}))
+    return BUILD_ROOT / f"{source.stem}-{key}" / f"lib{source.stem}.so"
+
+
 def build_library(source: pathlib.Path, flags: Sequence[str] = (),
                   fmad: bool = True,
                   headers: Optional[Mapping[str, str]] = None):
@@ -86,11 +96,10 @@ def build_library(source: pathlib.Path, flags: Sequence[str] = (),
     which is what makes a bitwise comparison with a plain torch version
     possible.
     """
+    lib_path = library_path(source, flags, fmad, headers)
     flags = NVCC_FLAGS + tuple(flags) + (() if fmad else ("--fmad=false",))
     headers = dict(headers or {})
-    key = build_key(source, flags, headers)
-    out_dir = BUILD_ROOT / f"{source.stem}-{key}"
-    lib_path = out_dir / f"lib{source.stem}.so"
+    out_dir = lib_path.parent
     log_path = out_dir / "ptxas.txt"
     seconds, cached = 0.0, lib_path.exists()
     if not cached:

@@ -3,32 +3,37 @@
 The counterpart of ``optik_tpu/ops/pallas/lm_kernel.py:build_kernel_solver``.
 The kernel (``optik_tpu_torch/csrc/lm_kernel.cu``) runs the whole lockstep
 projected-LM solve with one thread per lane, thread groups drawing poses
-from a work queue; this module writes the robot's chain constants into a
-header (:func:`chain_header`), builds the kernel with ``nvcc`` at first use,
-binds its plain C entry point with ``ctypes``, lays out the inputs, launches
-it, and picks each pose's winner in torch, as the JAX package does outside
-its Pallas kernel (``lm_kernel.py:345-377``).
+from a work queue.  It takes the chain in one of two forms.  Up to
+``MAX_DOF`` joints the chain is folded into the code: this module writes
+its constants into a header (:func:`chain_header`) and builds a library per
+robot.  Wider chains take the run-time-chain form: the chain is an array
+(:func:`pack_runtime_chain`) and the per-lane vectors live in a scratch
+buffer this module allocates, so one library per variant serves every
+chain.  The module builds the kernel with ``nvcc`` at first use, binds its
+plain C entry point with ``ctypes``, lays out the inputs, launches it, and
+picks each pose's winner in torch, as the JAX package does outside its
+Pallas kernel (``lm_kernel.py:345-377``).
 
 Dispatch is by one predicate, :func:`kernel_runs`, decided before anything
 is built: :func:`solve_lanes` sends what it accepts (CUDA, float32, at most
-64 seed lanes per pose, 1..32 joints) to :func:`solve_kernel`, which
-launches the kernel or raises, and everything else to :func:`solve_plain`
-(the same function through :func:`optik_tpu_torch.solver.lm_soa.lm_loop` in
-kernel math mode, on the tensors' device): the CPU, a float64 solve (the
-JAX facade solves float64 through XLA, not its kernel), a chain wider than
-the libraries are built for.  No failure of a build or a launch turns into
-the plain version.
+64 seed lanes per pose, any number of joints) to :func:`solve_kernel`,
+which launches the kernel or raises, and everything else to
+:func:`solve_plain` (the same function through
+:func:`optik_tpu_torch.solver.lm_soa.lm_loop` in kernel math mode, on the
+tensors' device): the CPU, a float64 solve (the JAX facade solves float64
+through XLA, not its kernel), more seed lanes than a pose's two warps
+hold.  No failure of a build or a launch turns into the plain version.
 
 Scope: everything the Pallas kernel runs.  Speed and Quality mode (best
 success by distance to the caller's seed, ``quality_max_successes`` cap),
 with and without reseeding, per-axis weights, ``restart_offset`` and
 ``lane0_stream`` (both on the host: they only change the seed table and the
 start points), a constant ``ee_offset`` folded into the chain tip, any
-S = min(seed_batch, total_restarts) from 1 to 64, DoF 1..32, float32.  One
-library holds one instantiation (robot chain, mode, weighted, two-warp
-poses, contraction) and is built when a solve first needs it; joint limits,
-the tip and every option are run-time, so a new ``ee_offset`` or config
-reuses the library.
+S = min(seed_batch, total_restarts) from 1 to 64, any DoF, float32.  One
+library holds one instantiation (the robot chain for the folded form,
+mode, weighted, two-warp poses, contraction) and is built when a solve
+first needs it; joint limits, the tip and every option are run-time, so a
+new ``ee_offset`` or config reuses the library.
 """
 
 from __future__ import annotations
@@ -52,14 +57,21 @@ from . import build
 LAUNCHES = 0
 
 SOURCE = build.CSRC / "lm_kernel.cu"
-# The widest chain the kernel is built for (csrc/lm_kernel.cu: kMaxDof).
-# The Pallas kernel has no such cap; nvcc's time and the per-lane state,
-# which spills to local memory, grow with the DoF (PERF.md), so wider
-# chains run the plain version (kernel_runs).
+# The widest chain folded into a library (csrc/lm_kernel.cu: kMaxDof).
+# nvcc's time and the per-lane state, which spills to local memory, grow
+# with the DoF (PERF.md), so wider chains take the run-time-chain form,
+# which has no cap, as the Pallas kernel has none.
 MAX_DOF = 32
 MAX_SEED_LANES = 64
 _NUM_OPTS = 19
 CHAIN_HEADER = "optik_chain.h"
+# The run-time chain's array (csrc/lm_kernel.cu: kRuntimeFloats,
+# JointField): a head of RUNTIME_HEAD floats, JOINT_FLOATS per joint, then
+# the limits.
+RUNTIME_HEAD = 14
+JOINT_FLOATS = 22
+# The kernel addresses its scratch words in 32 bits.
+_MAX_SCRATCH_WORDS = 2**31 - 1
 
 
 class LaneResult(NamedTuple):
@@ -152,51 +164,73 @@ def _header_of(spec, consts) -> str:
     return _HEADERS[key]
 
 
-@functools.lru_cache(maxsize=None)
-def _load_library(header: str, quality: bool, weighted: bool, wide: bool,
-                  fmad: bool):
+def library_flags(header: Optional[str], quality: bool, weighted: bool,
+                  wide: bool):
+    """The ``-D`` flags of one instantiation (``header`` None: the run-time
+    chain)."""
     flags = (f"-DOPTIK_QUALITY={int(quality)}",
              f"-DOPTIK_WEIGHTED={int(weighted)}",
              f"-DOPTIK_WIDE={int(wide)}")
-    lib, info = build.build_library(SOURCE, flags, fmad,
-                                    headers={CHAIN_HEADER: header})
+    return flags if header is not None else flags + ("-DOPTIK_RUNTIME_CHAIN=1",)
+
+
+@functools.lru_cache(maxsize=None)
+def _load_library(header: Optional[str], quality: bool, weighted: bool,
+                  wide: bool, fmad: bool):
+    flags = library_flags(header, quality, weighted, wide)
+    lib, info = build.build_library(
+        SOURCE, flags, fmad,
+        headers={} if header is None else {CHAIN_HEADER: header})
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.optik_lm_solve.argtypes = ([vp, ci, vp] + [ci] * 7 + [vp] * 14)
+    # chain, chain_len, opts; n_opts .. freeze; seeds .. times, dev_chain,
+    # scratch; scratch_words; stream.
+    lib.optik_lm_solve.argtypes = ([vp, ci, vp] + [ci] * 7 + [vp] * 15
+                                   + [ctypes.c_longlong, vp])
     lib.optik_lm_solve.restype = ci
     lib.optik_lm_error_string.argtypes = [ci]
     lib.optik_lm_error_string.restype = ctypes.c_char_p
     lib.optik_lm_grid.argtypes = [ci, ci]
     lib.optik_lm_grid.restype = ci
+    lib.optik_lm_scratch_words.argtypes = [ci, ci, ci]
+    lib.optik_lm_scratch_words.restype = ctypes.c_longlong
     for name in ("optik_lm_block_threads", "optik_lm_runtime_floats",
                  "optik_lm_num_opts", "optik_lm_variant",
-                 "optik_lm_blocks_per_sm"):
+                 "optik_lm_blocks_per_sm", "optik_lm_joint_floats"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ci
-    dof = int(header.split("kDof = ")[1].split(";")[0])
-    has_tip = "kHasTip = true" in header
-    want = (dof | int(quality) << 8 | int(weighted) << 9 | int(wide) << 10
-            | int(has_tip) << 11)
-    if (lib.optik_lm_runtime_floats() != 13 + 2 * dof
-            or lib.optik_lm_num_opts() != _NUM_OPTS
+    want = int(quality) << 8 | int(weighted) << 9 | int(wide) << 10
+    if header is None:
+        layout = (RUNTIME_HEAD, JOINT_FLOATS)
+        want |= 1 << 12
+    else:
+        dof = int(header.split("kDof = ")[1].split(";")[0])
+        layout = (13 + 2 * dof, 0)
+        want |= dof | int("kHasTip = true" in header) << 11
+    if ((lib.optik_lm_runtime_floats(), lib.optik_lm_joint_floats())
+            != layout or lib.optik_lm_num_opts() != _NUM_OPTS
             or lib.optik_lm_variant() != want):
         raise RuntimeError(f"{info.path} does not match this wrapper's "
                            "layout or the requested instantiation")
     return lib, info
 
 
-def load_library(header: str, quality: bool = False, weighted: bool = False,
-                 wide: bool = False, fmad: bool = True):
-    """Build one instantiation of the kernel for the chain of ``header``
-    (:func:`chain_header`) at first use and load it:
+def load_library(header: Optional[str], quality: bool = False,
+                 weighted: bool = False, wide: bool = False,
+                 fmad: bool = True):
+    """Build one instantiation of the kernel at first use and load it:
     ``(CDLL, build.BuildInfo)``.
 
+    ``header`` is the folded chain's (:func:`chain_header`), or None for
+    the run-time-chain form, whose one library serves every chain.
     ``quality`` compiles the Quality-mode loop (best tracking, success
     cap), ``weighted`` the per-axis objective weights, ``wide`` the exchange
     between the two warps of a 33..64-lane pose that Speed freeze and the
     Quality cap need.  ``fmad=False`` builds without multiply-add
     contraction: that build is bitwise equal to :func:`solve_plain` on the
-    card (the parity check of chip_smoke.py and tests/test_torch_cuda.py).
-    The solver itself uses the contracted build.
+    card (the parity check of chip_smoke.py and tests/test_torch_cuda.py;
+    for the run-time chain where the plain version folds no constants of
+    two joints together, ``csrc/lm_kernel.cu``).  The solver itself uses the
+    contracted build.
     """
     return _load_library(header, bool(quality), bool(weighted), bool(wide),
                          bool(fmad))
@@ -211,7 +245,8 @@ def library_report(lib, info) -> dict:
     return {"registers": use["registers"], "stack": use["stack"],
             "spill_bytes": use["spill_stores"] + use["spill_loads"],
             "block_threads": block, "blocks_per_sm": per_sm,
-            "warps_per_sm": per_sm * block // 32, "nvcc_s": info.seconds}
+            "warps_per_sm": per_sm * block // 32, "nvcc_s": info.seconds,
+            "path": str(info.path)}
 
 
 def fold_ee_offset(consts, ee_offset):
@@ -246,6 +281,49 @@ def pack_chain(consts, lower, upper) -> np.ndarray:
                           upper]).astype(np.float32)
     assert out.size == 13 + 2 * len(axes)
     return out
+
+
+def pack_runtime_chain(consts, lower, upper,
+                       dtype=np.float32) -> np.ndarray:
+    """The chain as the run-time-chain kernel reads it: one flat array.
+
+    A head of ``RUNTIME_HEAD``: tip_r (9), tip_t (3), has_tip (1), DoF (1).
+    Then per joint ``JOINT_FLOATS``: the origin rotation (9, row-major),
+    translation (3) and axis (3); its kind (bit 0 prismatic; bit 1 + i set
+    where the axis lies in the plane of the other two components, so that
+    Rodrigues' diagonal entry i is ``cos q``); and the products of two
+    constants that ``soa.rodrigues`` forms before they meet a lane, each
+    computed in double as the plain version does and rounded once:
+    ``-(ky^2 + kz^2)``, ``-(kx^2 + kz^2)``, ``-(kx^2 + ky^2)``, then
+    ``kx ky``, ``kx kz``, ``ky kz``.  Then lower (A), upper (A).
+    ``dtype`` float64 keeps every constant exact (for a walk at f64).
+    """
+    org_r, org_t, axes, pris, tip_r, tip_t, has_tip = consts
+    a = len(axes)
+    rows = []
+    for j in range(a):
+        kx, ky, kz = axes[j]
+        kk = (ky * ky + kz * kz, kx * kx + kz * kz, kx * kx + ky * ky)
+        kind = int(pris[j]) | sum(1 << (1 + i) for i in range(3)
+                                  if kk[i] == 1.0)
+        rows.append([v for r in org_r[j] for v in r] + list(org_t[j])
+                    + [kx, ky, kz, float(kind), -kk[0], -kk[1], -kk[2],
+                       kx * ky, kx * kz, ky * kz])
+    head = [v for r in tip_r for v in r] + list(tip_t) + [float(has_tip), a]
+    out = np.concatenate([np.asarray(head, np.float64),
+                          np.asarray(rows, np.float64).ravel(),
+                          np.asarray(lower, np.float64),
+                          np.asarray(upper, np.float64)]).astype(dtype)
+    assert out.size == RUNTIME_HEAD + (JOINT_FLOATS + 2) * a
+    return out
+
+
+def lane_scratch_bytes(plan: "KernelPlan", lib) -> int:
+    """Scratch bytes one lane of ``lib`` (the plan's library) holds for the
+    plan's chain, by the library's own count: 0 for the folded chain,
+    whose vectors are registers."""
+    threads = lib.optik_lm_grid(1, plan.s_pad) * lib.optik_lm_block_threads()
+    return 4 * lib.optik_lm_scratch_words(1, plan.s_pad, plan.a) // threads
 
 
 def padded_lanes(s: int) -> int:
@@ -311,11 +389,12 @@ def fp32_ops_per_lane_iter(plan: "KernelPlan", samples: int = 64) -> int:
 
 
 def check_supported(spec) -> None:
-    """Raise for a chain the CUDA kernel is not built for (more seed lanes
-    than it holds raise in :func:`padded_lanes`, when a plan is made)."""
-    if not 1 <= spec.num_positions <= MAX_DOF:
+    """Raise for a chain the CUDA kernel does not take: one without joints
+    (more seed lanes than it holds raise in :func:`padded_lanes`, when a
+    plan is made)."""
+    if spec.num_positions < 1:
         raise ValueError(
-            f"the CUDA kernel is built for 1..{MAX_DOF} DoF, got "
+            f"the CUDA kernel needs at least one joint, got "
             f"{spec.num_positions}")
 
 
@@ -323,7 +402,8 @@ def kernel_runs(spec, cfg: SolverConfig, dtype: torch.dtype,
                 device: "str | torch.device") -> bool:
     """Whether a solve of ``spec`` under ``cfg`` at ``dtype`` on ``device``
     runs the CUDA kernel: a CUDA device, float32, at most
-    ``MAX_SEED_LANES`` seed lanes per pose and 1..``MAX_DOF`` joints.
+    ``MAX_SEED_LANES`` seed lanes per pose and at least one joint (up to
+    ``MAX_DOF`` the folded chain, above it the run-time chain).
 
     The one routing rule of the LM solve (:func:`solve_lanes`,
     ``Robot.ik_batch``, the seed-sharded solver): what it refuses runs the
@@ -333,20 +413,23 @@ def kernel_runs(spec, cfg: SolverConfig, dtype: torch.dtype,
     """
     return (torch.device(device).type == "cuda" and dtype == torch.float32
             and min(cfg.seed_batch, cfg.total_restarts) <= MAX_SEED_LANES
-            and 1 <= spec.num_positions <= MAX_DOF)
+            and spec.num_positions >= 1)
 
 
 class KernelPlan:
     """Everything one (robot, config, ee_offset) solve needs, built once.
 
-    Holds the folded chain constants, the kernel's chain header
-    (compile-time joints) and run-time chain array (tip, limits), the LM
-    options, the mode, weights and success cap, and the restart seed tables:
-    one per ``restart_offset``, made on the host and uploaded once per
-    device; the kernel and :func:`solve_plain` read the same copy.
+    Holds the folded chain constants, the kernel's chain in its form (up to
+    ``MAX_DOF`` joints the header of compile-time joints and the run-time
+    array of tip and limits; above it, or with ``runtime_chain=True``, the
+    run-time chain's array, uploaded once per device), the LM options, the
+    mode, weights and success cap, and the restart seed tables: one per
+    ``restart_offset``, made on the host and uploaded once per device; the
+    kernel and :func:`solve_plain` read the same copy.
     """
 
-    def __init__(self, spec, cfg: SolverConfig, ee_offset=None):
+    def __init__(self, spec, cfg: SolverConfig, ee_offset=None,
+                 runtime_chain: Optional[bool] = None):
         self.s_pad = padded_lanes(min(cfg.seed_batch, cfg.total_restarts))
         self.cfg = cfg
         self.spec = spec
@@ -367,8 +450,19 @@ class KernelPlan:
         self.lin_id = soa.weights_are_identity(cfg.linear_weight)
         self.ang_id = soa.weights_are_identity(cfg.angular_weight)
         self.weighted = not (self.lin_id and self.ang_id)
-        self.header = _header_of(spec, consts)
-        self.chain = pack_chain(consts, self.lower, self.upper)
+        if runtime_chain is None:
+            runtime_chain = self.a > MAX_DOF
+        elif not runtime_chain and self.a > MAX_DOF:
+            raise ValueError(f"a folded chain has at most {MAX_DOF} joints, "
+                             f"got {self.a}")
+        self.runtime_chain = bool(runtime_chain)
+        if self.runtime_chain:
+            self.header = None
+            self.chain = pack_runtime_chain(consts, self.lower, self.upper)
+        else:
+            self.header = _header_of(spec, consts)
+            self.chain = pack_chain(consts, self.lower, self.upper)
+        self._chains = {}
         o = self.opts
         self.opt_array = np.array(
             [o.max_iters, o.tol_f, o.tol_df, o.tol_dx, o.f_is_success,
@@ -384,11 +478,30 @@ class KernelPlan:
 
     def library(self, freeze: bool, fmad: bool = True):
         """The kernel library a launch of this plan uses:
-        ``(CDLL, build.BuildInfo)``, built at first use.  Raises for a
-        chain the kernel is not built for (:func:`check_supported`)."""
+        ``(CDLL, build.BuildInfo)``, built at first use: the chain's own
+        folded library, or the run-time chain's, one per variant.  Raises
+        for a chain the kernel does not take (:func:`check_supported`)."""
         check_supported(self.spec)
         return load_library(self.header, self.quality, self.weighted,
                             self.wide(freeze), fmad)
+
+    def library_path(self, freeze: bool, fmad: bool = True):
+        """The file :meth:`library` loads (nothing is built): one per
+        robot for the folded chain, one per variant for the run-time
+        chain."""
+        flags = library_flags(self.header, self.quality, self.weighted,
+                              self.wide(freeze))
+        return build.library_path(
+            SOURCE, flags, fmad,
+            {} if self.header is None else {CHAIN_HEADER: self.header})
+
+    def device_chain(self, device: torch.device) -> torch.Tensor:
+        """The run-time chain's array on ``device`` (uploaded once)."""
+        t = self._chains.get(device)
+        if t is None:
+            t = torch.tensor(self.chain, device=device)
+            self._chains[device] = t
+        return t
 
     def table(self, device: torch.device, off: int = 0,
               dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -501,9 +614,21 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
         * lib.optik_lm_block_threads() // 32
     if n_warps < 1:
         raise RuntimeError("the occupancy query of the LM kernel failed")
+    words = lib.optik_lm_scratch_words(b, plan.s_pad, a)
+    if not 0 <= words <= _MAX_SCRATCH_WORDS:
+        raise ValueError(
+            f"the run-time-chain kernel's scratch for {a} joints is "
+            f"{words} floats at B={b}: more than its 32-bit addressing "
+            f"({_MAX_SCRATCH_WORDS})")
     with torch.cuda.device(device):
         def empty(shape, dtype):
             return torch.empty(shape, dtype=dtype, device=device)
+
+        # The run-time chain's per-lane vectors (torch raises where the
+        # card has no room for them); the folded chain needs none.
+        scratch = empty(words, torch.float32) if words else None
+        dev_chain = plan.device_chain(device) if plan.runtime_chain \
+            else None
 
         x_out = empty((a, n_lanes), torch.float32)
         f_out = empty(n_lanes, torch.float32)
@@ -528,7 +653,9 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
             qx0.data_ptr() if use_qx0 else None, x_out.data_ptr(),
             f_out.data_ptr(), succ.data_ptr(), ridx.data_ptr(),
             sit.data_ptr(), queue.data_ptr(), pose_iters.data_ptr(),
-            trips.data_ptr(), times.data_ptr(), stream)
+            trips.data_ptr(), times.data_ptr(),
+            None if dev_chain is None else dev_chain.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), words, stream)
         if rc != 0:
             raise RuntimeError(
                 "optik_lm_solve failed: "

@@ -15,12 +15,13 @@ A ``Robot`` lives on one explicit ``device`` (default ``"cuda"``; on a
 machine without a card that default raises rather than switching to the
 CPU).  ``ik_batch`` on CUDA runs the hand-written LM kernel
 (``ops/cuda/lm_kernel.py``) in Speed and Quality mode, with per-axis
-weights, any ``seed_batch`` up to 64 lanes per pose, chains of 1 to 32
-joints and unlimited restart rounds (``max_restarts=0``); on the CPU it
-runs the plain torch loop (``solver/ik.build_batch_solver``).  What the
-kernel does not take (``lm_kernel.kernel_runs``: a float64 Robot, more than
-64 seed lanes per pose, more than 32 joints) runs that plain loop on the
-card, as the JAX facade leaves its kernel for its XLA path; the route is
+weights, any ``seed_batch`` up to 64 lanes per pose, chains of any length
+(up to 32 joints folded into the kernel, wider ones read at run time) and
+unlimited restart rounds (``max_restarts=0``); on the CPU it runs the plain
+torch loop (``solver/ik.build_batch_solver``).  What the kernel does not
+take (``lm_kernel.kernel_runs``: a float64 Robot, more than 64 seed lanes
+per pose) runs that plain loop on the card, as the JAX facade leaves its
+kernel for its XLA path; the route is
 decided by config before anything is built, and no failure of the kernel
 turns into the plain loop.
 The Jacobians and differential IK are plain eager tensor operations on the
@@ -255,9 +256,11 @@ class Robot:
         ``(on_kernel, fn)``.
 
         The LM kernel where ``lm_kernel.kernel_runs`` holds (CUDA, float32,
-        at most 64 seed lanes per pose, 1..32 joints); otherwise the plain
-        loop on this device, with exact libm sin/cos/atan2 (on the card as
-        ``optik_tpu/robot.py:90-157`` leaves the Pallas kernel for XLA).
+        at most 64 seed lanes per pose, any DoF: up to 32 joints folded into
+        the code, above that the run-time-chain form, by the kernel's plan);
+        otherwise the plain loop on this device, with exact libm
+        sin/cos/atan2 (on the card as ``optik_tpu/robot.py:90-157`` leaves
+        the Pallas kernel for XLA).
         The kernel folds ``ee_offset`` in when it is built; the plain loop
         takes it per call."""
         ee_key = None if ee_offset is None else tuple(
@@ -339,8 +342,8 @@ class Robot:
         Seeds outside the joint limits raise, as in the scalar path;
         ``validate_seeds=False`` skips that check (for seeds in the limits
         by construction).  On CUDA this runs the LM kernel for a float32
-        Robot of 1..32 joints and at most 64 seed lanes per pose, and the
-        plain loop on the card otherwise (see :meth:`_batch_solver`).
+        Robot and at most 64 seed lanes per pose, and the plain loop on the
+        card otherwise (see :meth:`_batch_solver`).
         ``config.max_restarts == 0`` runs unlimited-restart rounds (see
         :meth:`_ik_batch_unlimited`), whose continuation rounds pass
         ``_restart_offset``.  The winner-selection key (``sel_key``) is

@@ -14,9 +14,10 @@ the arm's self-motion, so that build is held to poses, not joint values.
 The option cases cover what ``chip_smoke.py`` covers: per-axis weights, any
 seed count up to 64 (padded lanes, two-warp poses), Quality mode with and
 without its success cap, ``restart_offset``, ``lane0_stream``, unlimited
-restart rounds, the 11-joint mobile Panda and a 16-joint arm (the kernel
-is built for 1..32 joints), a float64 Robot routed to the plain loop on the
-card, and the three probe kernels.  The queue cases hold the
+restart rounds, the 11-joint mobile Panda and a 16-joint arm (folded into
+the kernel up to 32 joints), the run-time-chain form at 40, 48 and 64
+joints (and against the folded form at 11), a float64 Robot routed to the
+plain loop on the card, and the three probe kernels.  The queue cases hold the
 kernel's schedule to the same bitwise standard at its edges: one pose,
 fewer poses than thread groups, batches that make every group (and every
 pair of warps) draw many poses in one launch, padded lanes inside a group
@@ -68,16 +69,22 @@ def libraries(robot):
                 for f in (False, True)
                 if not (w and x) and (not f or not (w or (q and x)))]
     # The wide chains' Speed builds: uncontracted, and the mobile Panda's
-    # solver build.
+    # solver build; the run-time chain's Speed builds (every chain's).
     for a, fmads in ((11, (False, True)), (16, (False,))):
         wide = lm_kernel.KernelPlan(_wide_spec(a), CFG).header
         variants += [(wide, False, False, False, f) for f in fmads]
-    with concurrent.futures.ThreadPoolExecutor(max_workers=11) as pool:
+    # The run-time chain's builds, one per variant for every chain: Speed
+    # both ways, and uncontracted what the option cases need.
+    variants += [(None, False, False, False, True)] + [
+        (None, q, w, x, False) for q, w, x in (
+            (False, False, False), (False, True, False), (True, False, False),
+            (True, True, False), (True, False, True))]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=17) as pool:
         list(pool.map(lambda v: lm_kernel.load_library(*v), variants))
 
 
 def _wide_spec(a):
-    """The 11-joint mobile Panda or a 16-joint arm."""
+    """The 11-joint mobile Panda or an a-joint arm."""
     from optik_tpu_torch.models import ChainSpec
 
     if a == 11:
@@ -179,6 +186,79 @@ def test_wide_chain_uncontracted_kernel_is_bitwise_plain(robot, a):
     assert float(found.float().mean()) >= 0.99
 
 
+@pytest.mark.parametrize("a", [40, 64])
+def test_runtime_chain_kernel_matches_plain(robot, a):
+    """Above 32 joints the run-time-chain kernel: uncontracted bitwise the
+    plain version in every lane (the synthetic arm's plain version folds no
+    constants of two joints together), contracted within the rounding-level
+    limits (found masks on at most 2 of 512 poses, FK of found x within
+    2e-3)."""
+    bot = Robot(_wide_spec(a), device="cuda")
+    plan = lm_kernel.KernelPlan(bot.spec, CFG)
+    assert plan.runtime_chain
+    tr, tt, x0 = _problem(bot, seed=a)
+    p = lm_kernel.solve_plain(plan, tr, tt, x0)
+    k = lm_kernel.solve_kernel(plan, tr, tt, x0, fmad=False)
+    for name in LANE_FIELDS:
+        assert torch.equal(getattr(k, name), getattr(p, name)), name
+    kc = lm_kernel.select(plan, lm_kernel.solve_kernel(plan, tr, tt, x0), x0)
+    pc = lm_kernel.select(plan, p, x0)
+    assert int((kc.found != pc.found).sum()) <= 2
+    assert float(kc.found.float().mean()) >= 0.99
+    assert bool((kc.cost[kc.found] <= CFG.tol_f).all())
+    r, t = bot.fk_batch(kc.x[kc.found])
+    torch.testing.assert_close(r, tr[kc.found], rtol=0, atol=2e-3)
+    torch.testing.assert_close(t, tt[kc.found], rtol=0, atol=2e-3)
+
+
+def test_wide_chain_ik_batch_launches_the_runtime_chain_kernel(robot,
+                                                               monkeypatch):
+    """Robot.ik_batch on a 48-joint arm launches the run-time-chain kernel
+    once per solve and never runs the plain version."""
+    bot = Robot(_wide_spec(48), device="cuda")
+    tr, tt, x0 = _problem(bot, seed=48)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(lm_kernel, "solve_plain", no_plain)
+    monkeypatch.setattr(lm_kernel, "plain_lanes", no_plain)
+    lm_kernel.LAUNCHES = 0
+    res = bot.ik_batch(CFG, tr, tt, x0)
+    again = bot.ik_batch(CFG, tr, tt, x0)
+    assert lm_kernel.LAUNCHES == 2
+    assert torch.equal(res.x, again.x) and torch.equal(res.found, again.found)
+    assert float(res.found.float().mean()) >= 0.99
+    assert bool((res.cost[res.found] <= CFG.tol_f).all())
+
+
+def test_runtime_chain_against_the_folded_chain(robot):
+    """The two forms of the kernel on the 11-joint mobile Panda, the same
+    inputs: within the contracted build's limits of each other (found masks
+    on at most 2 of 512 poses; where both found a pose by the same restart,
+    poses within 4e-3)."""
+    bot = Robot(_wide_spec(11), device="cuda")
+    tr, tt, x0 = _problem(bot, seed=11)
+    folded = lm_kernel.KernelPlan(bot.spec, CFG)
+    runtime = lm_kernel.KernelPlan(bot.spec, CFG, runtime_chain=True)
+    assert runtime.runtime_chain and not folded.runtime_chain
+    lanes_f = lm_kernel.solve_kernel(folded, tr, tt, x0)
+    lanes_r = lm_kernel.solve_kernel(runtime, tr, tt, x0)
+    f = lm_kernel.select(folded, lanes_f, x0)
+    r = lm_kernel.select(runtime, lanes_r, x0)
+    assert int((f.found != r.found).sum()) <= 2
+    both = f.found & r.found
+    rf, tf = bot.fk_batch(f.x[both])
+    rr, trr = bot.fk_batch(r.x[both])
+    assert float((rf - rr).abs().max()) <= 4e-3
+    assert float((tf - trr).abs().max()) <= 4e-3
+    # Bitwise, the uncontracted forms agree too: each is the plain version.
+    uf = lm_kernel.solve_kernel(folded, tr, tt, x0, fmad=False)
+    ur = lm_kernel.solve_kernel(runtime, tr, tt, x0, fmad=False)
+    for name in LANE_FIELDS:
+        assert torch.equal(getattr(uf, name), getattr(ur, name)), name
+
+
 def test_mobile_panda_ik_batch_launches_the_kernel(robot):
     bot = Robot(_wide_spec(11), device="cuda")
     tr, tt, x0 = _problem(bot, seed=5)
@@ -247,6 +327,24 @@ def test_option_uncontracted_kernel_is_bitwise_plain(robot, case):
         assert torch.equal(getattr(k, name), getattr(p, name)), name
     assert bool(k.success.any())
     # Restart indices stay local to the call.
+    assert int(k.restart_index.max()) < plan.r_total
+
+
+@pytest.mark.parametrize("case", sorted(OPTION_CASES))
+def test_runtime_chain_options_are_bitwise_plain(robot, case):
+    """Every option case on a 40-joint arm, the run-time-chain kernel
+    uncontracted: bitwise its plain version lane by lane (the loop is the
+    folded form's; the chain walk and the scratch vectors are new)."""
+    cfg, kw = OPTION_CASES[case]
+    bot = Robot(_wide_spec(40), device="cuda")
+    plan = lm_kernel.KernelPlan(bot.spec, cfg)
+    assert plan.runtime_chain
+    tr, tt, x0 = _problem(bot, seed=40, b=256)
+    k = lm_kernel.solve_kernel(plan, tr, tt, x0, fmad=False, **kw)
+    p = lm_kernel.solve_plain(plan, tr, tt, x0, **kw)
+    for name in LANE_FIELDS:
+        assert torch.equal(getattr(k, name), getattr(p, name)), name
+    assert bool(k.success.any())
     assert int(k.restart_index.max()) < plan.r_total
 
 

@@ -11,7 +11,12 @@ the chain's static terms folded at compile time, the SE(3) log, the task
 Jacobian, the weights) against ``soa.residual_and_jtask`` in kernel math
 mode on the same float32 inputs: every value bit for bit, a chain with
 prismatic joints and skew axes included, and chains wider than the Panda
-(the 11-joint mobile Panda, a 16-joint arm).  It skips where there is no
+(the 11-joint mobile Panda, a 16-joint arm).  The run-time-chain form
+(``-DOPTIK_RUNTIME_CHAIN=1``: the chain read from
+``lm_kernel.pack_runtime_chain``'s array, the per-lane vectors in strided
+memory) is built once per weighting and held to the same standard on the
+same chains and on 40 and 64 joints: one host program for every chain, as
+one library serves every chain on the card.  It skips where there is no
 ``g++``.
 
 One allowance: torch's CPU ``sqrt`` is not correctly rounded for every
@@ -23,6 +28,7 @@ float32 (about 0.6% of values differ from IEEE in the last bit), while C's
 import pathlib
 import shutil
 import subprocess
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -65,12 +71,17 @@ SHIM = """
 #define __host__
 #define __device__
 #define __forceinline__ inline __attribute__((always_inline))
+#define __ldg(p) (*(p))
 static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 #include "optik_chain.h"
 #define OPTIK_QUALITY 0
 #define OPTIK_WEIGHTED %d
 #define OPTIK_WIDE 0
 """
+
+# The run-time chain: no header; the chain is data.
+RUNTIME_SHIM = SHIM.replace('#include "optik_chain.h"\n',
+                            "#define OPTIK_RUNTIME_CHAIN 1\n")
 
 # Reads n, the weights and n x (q, target rotation, target translation);
 # writes n x (e[6], jt[6][A], f).
@@ -109,7 +120,59 @@ int main(int argc, char** argv) {
 """
 
 
+# Reads the packed chain's length and the chain, n, the weights and n x (q,
+# target rotation, target translation); writes what MAIN writes.
+RUNTIME_MAIN = """
+#include <vector>
+int main(int argc, char** argv) {
+  FILE* fi = fopen(argv[1], "rb");
+  FILE* fo = fopen(argv[2], "wb");
+  int len, n;
+  float wl[3], wa[3];
+  if (fread(&len, 4, 1, fi) != 1) return 1;
+  std::vector<float> chain(len);
+  if (fread(chain.data(), 4, len, fi) != (size_t)len) return 1;
+  if (fread(&n, 4, 1, fi) != 1) return 1;
+  if (fread(wl, 4, 3, fi) != 3 || fread(wa, 4, 3, fi) != 3) return 1;
+  Runtime rt;
+  for (int i = 0; i < 9; ++i) rt.tip_r[i] = chain[i];
+  for (int i = 0; i < 3; ++i) rt.tip_t[i] = chain[9 + i];
+  rt.has_tip = chain[12] > 0.5f;
+  const int a = rt.dof = (int)chain[13];
+  rt.joints = chain.data() + kRuntimeFloats;
+  rt.lower = rt.joints + kJointFloats * a;
+  rt.upper = rt.lower + a;
+  std::vector<float> q(a), jt(6 * a), out(6 * a);
+  for (int k = 0; k < n; ++k) {
+    float tr[9], tt[3], e[6], f, ml[9], ma[9];
+    if (fread(q.data(), 4, a, fi) != (size_t)a || fread(tr, 4, 9, fi) != 9
+        || fread(tt, 4, 3, fi) != 3) return 1;
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) {
+        ml[3 * i + j] = ((tr[i] * wl[0]) * tr[j] + (tr[3 + i] * wl[1]) * tr[3 + j])
+                        + (tr[6 + i] * wl[2]) * tr[6 + j];
+        ma[3 * i + j] = ((tr[i] * wa[0]) * tr[j] + (tr[3 + i] * wa[1]) * tr[3 + j])
+                        + (tr[6 + i] * wa[2]) * tr[6 + j];
+      }
+    residual_and_jtask_rt<kWeighted>(rt, Strided{q.data(), 1}, tr, tt, ml, ma, kWeighted,
+                                     kWeighted, e, Strided{jt.data(), 1}, f);
+    // Column j sits at 6 j .. 6 j + 5; write rows as MAIN does.
+    for (int i = 0; i < 6; ++i)
+      for (int j = 0; j < a; ++j) out[i * a + j] = jt[6 * j + i];
+    fwrite(e, 4, 6, fo);
+    fwrite(out.data(), 4, 6 * a, fo);
+    fwrite(&f, 4, 1, fo);
+  }
+  fclose(fo);
+  return 0;
+}
+"""
+
+
 def _spec(name):
+    if name.startswith("chain") and int(name[5:]) > 16:
+        a = int(name[5:])
+        return ChainSpec.from_urdf_str(chain_urdf(a), "l0", f"l{a}")
     if name == "odd":
         return ChainSpec.from_urdf_str(ODD_URDF, "b", "ee")
     if name == "mobile_panda":
@@ -123,15 +186,15 @@ def _spec(name):
     return ChainSpec.from_urdf_file(asset_path(urdf), base, ee)
 
 
-def _host_binary(plan, weighted, tmp_path) -> pathlib.Path:
-    """The kernel's math for ``plan``'s chain as a host program."""
+def _compile(shim, main, weighted, tmp_path) -> pathlib.Path:
+    """The kernel's math (from ``namespace {`` to the solve) between
+    ``shim`` and ``main`` as a host program."""
     src = lm_kernel.SOURCE.read_text()
     body = src[src.index("namespace {"):src.index("// --- the solve")]
     # g++ spells the unroll request differently; the result is the same.
     body = body.replace("#pragma unroll", "#pragma GCC unroll 16")
-    (tmp_path / lm_kernel.CHAIN_HEADER).write_text(plan.header)
     (tmp_path / "math.cpp").write_text(
-        SHIM % int(weighted) + body + "}  // namespace\n" + MAIN)
+        shim % int(weighted) + body + "}  // namespace\n" + main)
     exe = tmp_path / "math"
     subprocess.run(["g++", "-O1", "-std=c++17", "-ffp-contract=off", "-o",
                     str(exe), str(tmp_path / "math.cpp")], check=True,
@@ -139,20 +202,27 @@ def _host_binary(plan, weighted, tmp_path) -> pathlib.Path:
     return exe
 
 
-@pytest.mark.parametrize("robot,weighted", [
-    ("panda", False), ("panda", True), ("ur5", False), ("odd", False),
-    ("mobile_panda", False), ("chain16", False)])
-def test_kernel_math_on_the_host_is_bitwise_plain(robot, weighted, tmp_path,
-                                                  monkeypatch):
+def _host_binary(plan, weighted, tmp_path) -> pathlib.Path:
+    """The folded kernel's math for ``plan``'s chain as a host program."""
+    (tmp_path / lm_kernel.CHAIN_HEADER).write_text(plan.header)
+    return _compile(SHIM, MAIN, weighted, tmp_path)
+
+
+@pytest.fixture(scope="module")
+def runtime_binaries(tmp_path_factory):
+    """The run-time chain's math as host programs, one per weighting,
+    built once for every chain."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernel's math for the host")
-    monkeypatch.setattr(
-        torch, "sqrt", lambda t: torch.from_numpy(np.sqrt(t.numpy())))
-    spec = _spec(robot)
-    cfg = SolverConfig(**WEIGHTS) if weighted else SolverConfig()
-    plan = lm_kernel.KernelPlan(spec, cfg)
-    a = plan.a
-    exe = _host_binary(plan, weighted, tmp_path)
+    return {w: _compile(RUNTIME_SHIM, RUNTIME_MAIN, w,
+                        tmp_path_factory.mktemp(f"runtime{int(w)}"))
+            for w in (False, True)}
+
+
+def _check_bitwise(plan, cfg, run, tmp_path):
+    """Run the host program ``run.exe`` on N random points of ``plan``'s
+    chain and hold its output bitwise against soa.residual_and_jtask."""
+    spec, a = plan.spec, plan.a
 
     rng = np.random.default_rng(0)
     lo, hi = np.asarray(spec.lower), np.asarray(spec.upper)
@@ -174,13 +244,12 @@ def test_kernel_math_on_the_host_is_bitwise_plain(robot, weighted, tmp_path,
                      dim=1).numpy()
     tt = torch.stack([full(t_t[i]) for i in range(3)], dim=1).numpy()
     with open(tmp_path / "in.bin", "wb") as f:
-        f.write(np.int32(N).tobytes())
-        f.write(plan.chain.tobytes())
+        f.write(run.head)
         f.write(np.asarray(cfg.linear_weight, np.float32).tobytes())
         f.write(np.asarray(cfg.angular_weight, np.float32).tobytes())
         f.write(np.concatenate([q, tr, tt], axis=1).astype(
             np.float32).tobytes())
-    subprocess.run([str(exe), str(tmp_path / "in.bin"),
+    subprocess.run([str(run.exe), str(tmp_path / "in.bin"),
                     str(tmp_path / "out.bin")], check=True)
     got = np.fromfile(tmp_path / "out.bin", np.float32).reshape(
         N, 6 + 6 * a + 1)
@@ -199,3 +268,42 @@ def test_kernel_math_on_the_host_is_bitwise_plain(robot, weighted, tmp_path,
     same = got.view(np.int32) == want.view(np.int32)
     assert same.all(), (f"{(~same).any(axis=1).sum()} of {N} points differ, "
                         f"largest |d| {np.abs(got - want).max()}")
+
+
+class _Run(NamedTuple):
+    exe: pathlib.Path
+    head: bytes     # what the program reads before the weights
+
+
+@pytest.mark.parametrize("robot,weighted", [
+    ("panda", False), ("panda", True), ("ur5", False), ("odd", False),
+    ("mobile_panda", False), ("chain16", False)])
+def test_kernel_math_on_the_host_is_bitwise_plain(robot, weighted, tmp_path,
+                                                  monkeypatch):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the kernel's math for the host")
+    monkeypatch.setattr(
+        torch, "sqrt", lambda t: torch.from_numpy(np.sqrt(t.numpy())))
+    cfg = SolverConfig(**WEIGHTS) if weighted else SolverConfig()
+    plan = lm_kernel.KernelPlan(_spec(robot), cfg)
+    exe = _host_binary(plan, weighted, tmp_path)
+    _check_bitwise(plan, cfg, _Run(exe, np.int32(N).tobytes()
+                                   + plan.chain.tobytes()), tmp_path)
+
+
+@pytest.mark.parametrize("robot,weighted", [
+    ("panda", False), ("panda", True), ("odd", False),
+    ("mobile_panda", False), ("chain16", False), ("chain40", False),
+    ("chain64", True)])
+def test_runtime_chain_math_on_the_host_is_bitwise_plain(
+        robot, weighted, runtime_binaries, tmp_path, monkeypatch):
+    """The run-time chain's walk of the packed array, FK through the
+    weighted task Jacobian, bit for bit the plain version's."""
+    monkeypatch.setattr(
+        torch, "sqrt", lambda t: torch.from_numpy(np.sqrt(t.numpy())))
+    cfg = SolverConfig(**WEIGHTS) if weighted else SolverConfig()
+    plan = lm_kernel.KernelPlan(_spec(robot), cfg, runtime_chain=True)
+    assert plan.header is None
+    _check_bitwise(plan, cfg, _Run(
+        runtime_binaries[weighted], np.int32(plan.chain.size).tobytes()
+        + plan.chain.tobytes() + np.int32(N).tobytes()), tmp_path)

@@ -24,7 +24,13 @@
     than the Panda: the 11-joint mobile Panda (the Panda on a holonomic base
     with a lift, ``models.synthetic.mobile_panda_urdf``) and a 12-joint arm.
   * ``lm_kernel.kernel_runs``, the one rule that routes a solve to the
-    kernel or to the plain loop, over device, dtype, seed lanes and DoF.
+    kernel or to the plain loop, over device, dtype, seed lanes and DoF,
+    and the run-time-chain form that takes chains above ``MAX_DOF``: its
+    packed array, walked as the kernel walks it, against the port's and the
+    JAX package's ``ops/soa`` FK and Jacobian at f64 on 40 and 64 joints.
+    No JAX solve runs above 12 joints here (the Pallas kernel in interpret
+    mode and the XLA path take minutes at 40); the solve itself is the same
+    plain loop at every DoF.
 """
 
 import dataclasses
@@ -62,6 +68,9 @@ def panda():
 WIDE = {"mobile_panda": (mobile_panda_urdf, "mobile_base",
                          "panda_hand_tcp"),
         "chain12": (lambda: chain_urdf(12), "l0", "l12")}
+# Chains above MAX_DOF that only the operation count takes from this
+# fixture (no solve through the JAX package at that width).
+COUNT_ONLY = {"chain40": (lambda: chain_urdf(40), "l0", "l40")}
 
 
 @pytest.fixture(scope="module", params=["panda"] + sorted(WIDE))
@@ -69,7 +78,7 @@ def chain(request):
     """(name, JAX robot, port spec) of the Panda and of each wide chain."""
     if request.param == "panda":
         return ("panda", *request.getfixturevalue("panda"))
-    urdf, base, ee = WIDE[request.param]
+    urdf, base, ee = {**WIDE, **COUNT_ONLY}[request.param]
     jr = JaxRobot.from_urdf_str(urdf(), base, ee, dtype=jnp.float64)
     return (request.param, jr,
             ChainSpec.from_arrays(dataclasses.asdict(jr.spec)))
@@ -316,30 +325,54 @@ def test_kernel_wrapper_dispatch_and_checks(panda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
 @pytest.mark.parametrize("lanes", [64, 128])
-@pytest.mark.parametrize("dof", [7, 11, lm_kernel.MAX_DOF + 1])
+@pytest.mark.parametrize("dof", [7, 11, lm_kernel.MAX_DOF + 1, 64])
 def test_kernel_runs_routes_by_device_dtype_lanes_and_dof(device, dtype,
                                                           lanes, dof):
     """The one predicate every route asks: the kernel takes float32 on a
-    CUDA device, at most 64 seed lanes per pose and 1..32 joints; all else
-    is the plain loop's.  It reads the config and never the device itself,
-    so it holds here without a card."""
+    CUDA device and at most 64 seed lanes per pose, at any DoF (above
+    MAX_DOF in its run-time-chain form); all else is the plain loop's.  It
+    reads the config and never the device itself, so it holds here
+    without a card."""
     spec = ChainSpec.from_urdf_str(chain_urdf(dof), "l0",
                                    f"l{dof}")
     cfg = SolverConfig(max_restarts=128, seed_batch=lanes)
-    want = (device == "cuda" and dtype == torch.float32 and lanes <= 64
-            and dof <= 32)
+    want = device == "cuda" and dtype == torch.float32 and lanes <= 64
     assert lm_kernel.kernel_runs(spec, cfg, dtype, device) is want
     assert lm_kernel.kernel_runs(spec, cfg, dtype, torch.device(device)) \
         is want
 
 
-def test_chains_above_the_cap_run_the_plain_version():
-    """A 33-joint chain has a plan (its plain version runs anywhere), and
-    solve_lanes runs it; only a build of its kernel raises, before nvcc."""
+def test_chains_above_the_cap_take_the_runtime_chain_library():
+    """A 33-joint plan takes the run-time-chain form: no header, the packed
+    array, and the one library of its variant that every chain above
+    MAX_DOF shares (by its build key: nothing is built here), apart from
+    any folded chain's.  Its plain version still runs on the CPU, and
+    check_supported refuses only a chain without joints."""
     a = lm_kernel.MAX_DOF + 1
     spec = ChainSpec.from_urdf_str(chain_urdf(a), "l0", f"l{a}")
-    plan = lm_kernel.KernelPlan(spec, SolverConfig(max_restarts=4,
-                                                   seed_batch=4, max_iters=2))
+    cfg = SolverConfig(max_restarts=4, seed_batch=4, max_iters=2)
+    plan = lm_kernel.KernelPlan(spec, cfg)
+    assert plan.runtime_chain and plan.header is None
+    assert plan.chain.size == (lm_kernel.RUNTIME_HEAD
+                               + (lm_kernel.JOINT_FLOATS + 2) * a)
+    key = plan.library_path(freeze=True)
+    for n in (40, 64, 128):
+        wide = lm_kernel.KernelPlan(
+            ChainSpec.from_urdf_str(chain_urdf(n), "l0", f"l{n}"), cfg)
+        assert wide.library_path(freeze=True) == key
+        assert lm_kernel.kernel_runs(wide.spec, cfg, torch.float32, "cuda")
+    # The run-time form of a folded-width chain loads the same library;
+    # the folded form is its robot's own.
+    spec11 = ChainSpec.from_urdf_str(chain_urdf(11), "l0", "l11")
+    assert lm_kernel.KernelPlan(spec11, cfg, runtime_chain=True) \
+        .library_path(freeze=True) == key
+    folded = lm_kernel.KernelPlan(spec11, cfg)
+    assert not folded.runtime_chain
+    assert folded.library_path(freeze=True) != key
+    assert plan.library_path(freeze=True, fmad=False) != key
+    with pytest.raises(ValueError, match="at most 32 joints"):
+        lm_kernel.KernelPlan(spec, cfg, runtime_chain=False)
+
     rng = np.random.default_rng(0)
     q = torch.tensor(rng.uniform(*spec.joint_limits(), size=(3, a)),
                      dtype=torch.float32)
@@ -347,17 +380,29 @@ def test_chains_above_the_cap_run_the_plain_version():
     lanes = lm_kernel.solve_lanes(plan, tr, tt, q)
     assert lanes.x.shape == (3, 4, a)
     assert bool(lanes.success[:, 0].all())  # lane 0 starts at the answer
-    with pytest.raises(ValueError, match=f"1..32 DoF, got {a}"):
-        plan.library(freeze=True)
+
+    for n in (1, a, 128):
+        lm_kernel.check_supported(
+            ChainSpec.from_urdf_str(chain_urdf(n), "l0", f"l{n}"))
+    empty = dataclasses.replace(
+        spec, joint_names=(), origin_r=spec.origin_r[:0],
+        origin_t=spec.origin_t[:0], axis=spec.axis[:0],
+        prismatic=spec.prismatic[:0], lower=spec.lower[:0],
+        upper=spec.upper[:0])
+    assert empty.num_positions == 0
+    with pytest.raises(ValueError, match="at least one joint, got 0"):
+        lm_kernel.check_supported(empty)
 
 
 # FP32 operations per lane-iteration of each chain's library: the count the
 # roofline bound uses.  The mobile Panda's is at least the Panda's plus the
 # dense algebra of its 4 more joints (67 per joint: J J^T 42, the projected
 # step 13, the gain ratio 12).
-OPS = {"panda": 2015, "mobile_panda": 2361, "chain12": 2981}
+OPS = {"panda": 2015, "mobile_panda": 2361, "chain12": 2981, "chain40": 9015}
 
 
+@pytest.mark.parametrize("chain", ["panda"] + sorted(WIDE) + ["chain40"],
+                         indirect=True)
 def test_fp32_operation_count_formula(chain):
     from optik_tpu_torch.ops import opcount, soa
 
@@ -406,6 +451,117 @@ def test_fp32_operation_count_formula(chain):
         # Below 3,120, the kernel's own operations with both sides of
         # every select and the unfolded chain.
         assert lm_kernel.fp32_ops_per_lane_iter(plan, samples=4) < 3120
+
+
+def _walk_runtime_chain(packed, q):
+    """FK and the geometric Jacobian's columns from the run-time chain's
+    array, joint by joint as ``csrc/lm_kernel.cu`` walks it
+    (``local_frame_rt``, ``residual_and_jtask_rt``), on (N, A) float64 q
+    with exact sin / cos: ((dir_w, p) per joint, r_ee, t_ee, columns)."""
+    head, width = lm_kernel.RUNTIME_HEAD, lm_kernel.JOINT_FLOATS
+    a = int(packed[13])
+    rec = torch.tensor(packed[head:head + width * a].reshape(a, width))
+    q = torch.as_tensor(q, dtype=torch.float64)
+    r = t = None
+    frames = []
+    for j in range(a):
+        org, org_t = rec[j, 0:9].reshape(3, 3), rec[j, 9:12]
+        k, kind = rec[j, 12:15], int(rec[j, 15])
+        if kind & 1:   # prismatic: lt = org_t + org_r (axis q)
+            lr = org.expand(q.shape[0], 3, 3)
+            lt = org_t + (q[:, j, None] * k) @ org.T
+        else:          # revolute: org_r (I + s K + (1 - c) K^2)
+            s, c = torch.sin(q[:, j]), torch.cos(q[:, j])
+            c1 = 1.0 - c
+            nkk, (pxy, pxz, pyz) = rec[j, 16:19], rec[j, 19:22]
+            diag = [c if kind >> (1 + i) & 1 else 1.0 + c1 * nkk[i]
+                    for i in range(3)]
+            kx, ky, kz = k
+            rot = torch.stack([
+                diag[0], -kz * s + pxy * c1, ky * s + pxz * c1,
+                kz * s + pxy * c1, diag[1], -kx * s + pyz * c1,
+                -ky * s + pxz * c1, kx * s + pyz * c1, diag[2]],
+                dim=-1).reshape(-1, 3, 3)
+            lr, lt = org @ rot, org_t.expand(q.shape[0], 3)
+        if r is None:
+            r, t = lr, lt
+        else:
+            t = (r @ lt[:, :, None])[:, :, 0] + t
+            r = r @ lr
+        frames.append(((r @ k)[:, :], t))
+    if packed[12] > 0.5:
+        tip_r = torch.tensor(packed[:9].reshape(3, 3))
+        t = (r @ torch.tensor(packed[9:12]))[:, :] + t
+        r = r @ tip_r
+    cols = []
+    for j, (dir_w, p) in enumerate(frames):
+        if int(rec[j, 15]) & 1:
+            lin, ang = dir_w, torch.zeros_like(dir_w)
+            cols.append(torch.cat([(r.transpose(1, 2) @ lin[:, :, None])[
+                :, :, 0], ang], dim=1))
+        else:
+            lin = torch.linalg.cross(dir_w, t - p)
+            cols.append(torch.cat([
+                (r.transpose(1, 2) @ lin[:, :, None])[:, :, 0],
+                (r.transpose(1, 2) @ dir_w[:, :, None])[:, :, 0]], dim=1))
+    return frames, r, t, cols
+
+
+@pytest.mark.parametrize("a", [40, 64])
+def test_pack_runtime_chain_round_trips(a):
+    """The run-time chain's array holds the plain version's chain: walked
+    as the kernel walks it, it gives the port's ``soa.fk_joints`` and
+    ``soa.jacobian_cols`` and the JAX package's, within 1e-12 at f64 on the
+    same numpy inputs."""
+    from optik_tpu.ops import soa as jax_soa
+    from optik_tpu_torch.ops import soa
+
+    urdf, ee = chain_urdf(a), f"l{a}"
+    spec = ChainSpec.from_urdf_str(urdf, "l0", ee)
+    consts = soa.chain_constants(spec)
+    lower, upper = ik.chain_bounds(spec)
+    packed = lm_kernel.pack_runtime_chain(consts, lower, upper, np.float64)
+    assert packed.size == lm_kernel.RUNTIME_HEAD \
+        + (lm_kernel.JOINT_FLOATS + 2) * a and packed[13] == a
+    np.testing.assert_array_equal(packed[-2 * a:-a], lower)
+    np.testing.assert_array_equal(packed[-a:], upper)
+    # The float32 array the kernel reads is this one rounded once.
+    np.testing.assert_array_equal(
+        lm_kernel.pack_runtime_chain(consts, lower, upper),
+        packed.astype(np.float32))
+
+    rng = np.random.default_rng(a)
+    q = rng.uniform(lower, upper, size=(6, a))
+    frames, r, t, cols = _walk_runtime_chain(packed, q)
+
+    def stacked(v):
+        return np.stack([np.broadcast_to(np.asarray(x, np.float64), (6,))
+                         for x in v], axis=-1)
+
+    ref_frames, ref_r, ref_t = soa.fk_joints(
+        consts, [torch.tensor(q[:, j]) for j in range(a)])
+    ref_cols = soa.jacobian_cols(consts, ref_frames, ref_r, ref_t)
+    jr = JaxRobot.from_urdf_str(urdf, "l0", ee, dtype=jnp.float64)
+    jconsts = jax_soa.chain_constants(jr.spec)
+    jframes, jr_ee, jt_ee = jax_soa.fk_joints(
+        jconsts, [jnp.asarray(q[:, j]) for j in range(a)])
+    jcols = jax_soa.jacobian_cols(jconsts, jframes, jr_ee, jt_ee)
+    for want_frames, want_r, want_t, want_cols in (
+            (ref_frames, ref_r, ref_t, ref_cols),
+            (jframes, jr_ee, jt_ee, jcols)):
+        kw = dict(rtol=0, atol=1e-12)
+        np.testing.assert_allclose(r.numpy(), stacked(
+            [v for row in want_r for v in row]).reshape(6, 3, 3), **kw)
+        np.testing.assert_allclose(t.numpy(), stacked(want_t), **kw)
+        for j in range(a):
+            rj, pj = want_frames[j]
+            np.testing.assert_allclose(frames[j][1].numpy(), stacked(pj),
+                                       **kw)
+            dir_w = soa.mat_vec(rj, consts[2][j])
+            np.testing.assert_allclose(frames[j][0].numpy(),
+                                       stacked(dir_w), **kw)
+            np.testing.assert_allclose(cols[j].numpy(),
+                                       stacked(want_cols[j]), **kw)
 
 
 def test_pack_chain_layout(panda):

@@ -97,6 +97,49 @@ def test_ik_batch_matches_jax_mobile_panda():
     assert not lm_kernel.kernel_runs(tr_.spec, cfg, torch.float64, "cuda")
 
 
+def test_ik_batch_wide_chain_on_the_plain_version():
+    """A 40-joint arm through the port's ``Robot.ik_batch`` at float32 on the
+    CPU, the main configuration, B = 16: the plain loop here, the
+    run-time-chain kernel on the card (``kernel_runs`` holds for it there).
+    Every found x reaches its target: its cost at f64 is within tol_f (plus
+    1e-8 for the float32 FK's rounding over 40 joints) and its FK within
+    2e-3; a repeat and a sub-batch solve are bitwise equal.  These are the
+    contracts chip_smoke.py holds the kernel to at this width."""
+    from optik_tpu_torch.models.synthetic import chain_urdf
+    from optik_tpu_torch.ops import soa
+    from optik_tpu_torch.ops.cuda import lm_kernel
+
+    a, b = 40, 16
+    robot = optik_tpu_torch.Robot.from_urdf_str(chain_urdf(a), "l0", f"l{a}",
+                                                device="cpu")
+    cfg = optik_tpu_torch.SolverConfig(**MAIN)
+    assert lm_kernel.kernel_runs(robot.spec, cfg, torch.float32, "cuda")
+    rng = np.random.default_rng(40)
+    lo, hi = robot.joint_limits()
+    rot, trans = robot.fk_batch(rng.uniform(lo, hi, size=(b, a)))
+    x0 = torch.tensor(rng.uniform(lo, hi, size=(b, a)), dtype=torch.float32)
+    res = robot.ik_batch(cfg, rot, trans, x0)
+    assert res.x.dtype == torch.float32 and res.x.shape == (b, a)
+    assert int(res.found.sum()) >= b - 1
+    found = res.found
+    assert bool((res.cost[found] <= cfg.tol_f).all())
+    x64 = res.x[found].double()
+    e, _ = soa.residual_and_jtask(
+        soa.chain_constants(robot.spec), [x64[:, j] for j in range(a)],
+        [[rot[found][:, i, k].double() for k in range(3)] for i in range(3)],
+        [trans[found][:, i].double() for i in range(3)])
+    cost64 = sum(v * v for v in e)
+    assert float(cost64.max()) <= cfg.tol_f + 1e-8
+    r_got, t_got = robot.fk_batch(res.x[found])
+    torch.testing.assert_close(r_got, rot[found], rtol=0, atol=2e-3)
+    torch.testing.assert_close(t_got, trans[found], rtol=0, atol=2e-3)
+    again = robot.ik_batch(cfg, rot, trans, x0)
+    head = robot.ik_batch(cfg, rot[:5], trans[:5], x0[:5])
+    for f in ("found", "x", "cost", "iters"):
+        assert torch.equal(getattr(again, f), getattr(res, f)), f
+        assert torch.equal(getattr(head, f), getattr(res, f)[:5]), f
+
+
 def test_fk_matches_jax(robots):
     jr, tr_ = robots
     rng = np.random.default_rng(6)
