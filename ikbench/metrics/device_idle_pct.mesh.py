@@ -1,0 +1,7 @@
+"""device_idle_pct.mesh: ``device_idle_pct.ik``'s arithmetic in the cells on a
+mesh of cards, where it moves ``mesh_solves_per_s`` (read on the card whose
+device time per call is largest)."""
+
+from ikbench.harness import reader
+
+read = reader("device_idle_pct.ik")

@@ -1,0 +1,7 @@
+"""glue_device_ms_per_batch.mesh: ``glue_device_ms_per_batch``'s arithmetic in
+the cells on a mesh of cards, where it moves ``mesh_solves_per_s`` (read on
+the card whose device time per call is largest)."""
+
+from ikbench.harness import reader
+
+read = reader("glue_device_ms_per_batch")

@@ -1,0 +1,7 @@
+"""ik_mfu_pct.mesh: ``ik_mfu_pct``'s arithmetic in the cells on a mesh of
+cards, where it moves ``mesh_solves_per_s`` (read on the card whose device
+time per call is largest)."""
+
+from ikbench.harness import reader
+
+read = reader("ik_mfu_pct")
