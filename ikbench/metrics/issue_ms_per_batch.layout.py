@@ -1,0 +1,11 @@
+"""issue_ms_per_batch.layout (ms): the host's self time per IK call in the
+program's span ``optik.ik.layout``: the seed table, the start points' SoA
+layout and the packed targets (``ops/cuda/lm_kernel.solve_kernel``).  Read
+from the program's telemetry in its segment with the profiler off
+(``ikbench/program_telemetry.py``)."""
+
+from ikbench import program_telemetry
+
+
+def read(rec):
+    return program_telemetry.self_ms_per_call(rec, "optik.ik.layout")

@@ -75,7 +75,9 @@
 //     number of times.
 //   * Schedule probe: lane 0 of each warp stores %globaltimer at its start,
 //     at its last successful draw and at its exit, and its loop trips; each
-//     group stores the iterations its pose ran, times S.
+//     group stores the iterations its pose ran, times S.  A one-thread
+//     kernel (optik_lm_globaltimer) reads the same clock, for the host to
+//     put the probe's times on its own clock.
 //   * Math: the same polynomial atan2 and sincos as the plain version's
 //     kernel math mode, rsqrtf in the Cholesky, IEEE division and sqrt (the
 //     library is built without --use_fast_math).
@@ -1074,6 +1076,11 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return now;
 }
 
+// One thread stores the card's %globaltimer, the schedule probe's clock, so
+// that the host can bracket the reading by its own clock
+// (optik_lm_globaltimer).
+__global__ void globaltimer_kernel(unsigned long long* out) { *out = global_ns(); }
+
 // Named barrier of the block's pair of warps (id 0 is __syncthreads).
 __device__ __forceinline__ void pair_barrier() {
   static_assert(kBlockThreads == 64, "the block is one pair");
@@ -1828,6 +1835,14 @@ long long optik_lm_scratch_words(int n_pose, int s_pad, int dof) {
 #else
   return (long long)grid_blocks(n_pose, s_pad) * kBlockThreads * lane_words(dof);
 #endif
+}
+
+// Launches one thread that writes the card's %globaltimer to *out (device
+// memory) on `stream`; returns cudaGetLastError().  The telemetry reads the
+// schedule probe's times on the host's clock by bracketing this read.
+int optik_lm_globaltimer(unsigned long long* out, void* stream) {
+  globaltimer_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(out);
+  return (int)cudaGetLastError();
 }
 
 const char* optik_lm_error_string(int code) {

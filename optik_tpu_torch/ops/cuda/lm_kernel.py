@@ -47,6 +47,7 @@ import torch
 
 from ...config import SolutionMode, SolverConfig
 from ... import random as rnd
+from ... import telemetry
 from ...solver import ik as ik_mod
 from ...solver import lm_soa
 from .. import soa
@@ -193,6 +194,8 @@ def _load_library(header: Optional[str], quality: bool, weighted: bool,
     lib.optik_lm_grid.restype = ci
     lib.optik_lm_scratch_words.argtypes = [ci, ci, ci]
     lib.optik_lm_scratch_words.restype = ctypes.c_longlong
+    lib.optik_lm_globaltimer.argtypes = [vp, vp]
+    lib.optik_lm_globaltimer.restype = ci
     for name in ("optik_lm_block_threads", "optik_lm_runtime_floats",
                  "optik_lm_num_opts", "optik_lm_variant",
                  "optik_lm_blocks_per_sm", "optik_lm_joint_floats"):
@@ -581,7 +584,8 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
     the one reduction a launch pays (two for a pose across two warps); the
     schedule probe (``warp_trips``, ``warp_times``) comes back as the kernel
     wrote it, for :func:`exec_slots` and :func:`schedule_profile` to reduce
-    when someone asks.
+    when someone asks; while telemetry records, :func:`probe_row` reduces
+    it on the card into the telemetry's counters.
     """
     global LAUNCHES
     a, s = plan.a, plan.s
@@ -620,7 +624,7 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
             f"the run-time-chain kernel's scratch for {a} joints is "
             f"{words} floats at B={b}: more than its 32-bit addressing "
             f"({_MAX_SCRATCH_WORDS})")
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), telemetry.span("optik.lm.launch"):
         def empty(shape, dtype):
             return torch.empty(shape, dtype=dtype, device=device)
 
@@ -661,15 +665,20 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
                 "optik_lm_solve failed: "
                 + lib.optik_lm_error_string(rc).decode())
         LAUNCHES += 1
+        telemetry.count("lm.launches")
         # A pose across two warps ran until the later of the two was through.
         if halves == 2:
             pose_iters = pose_iters.amax(dim=1)
         lane_iters = pose_iters.sum(dtype=torch.int64)
-    return LaneResult(
+    lanes = LaneResult(
         x=x_out.reshape(a, b, s).permute(1, 2, 0),
         f=f_out.reshape(b, s), success=succ.reshape(b, s).bool(),
         restart_index=ridx.reshape(b, s), succ_iters=sit.reshape(b, s),
         lane_iters=lane_iters, warp_trips=trips, warp_times=times)
+    row = telemetry.launch_row(device, lib)
+    if row is not None:
+        probe_row(lanes, out=row)
+    return lanes
 
 
 def pose_lane_iters(active_iters: torch.Tensor) -> torch.Tensor:
@@ -680,14 +689,44 @@ def pose_lane_iters(active_iters: torch.Tensor) -> torch.Tensor:
     return active_iters.amax(dim=1).sum(dtype=torch.int64) * s
 
 
+def probe_row(lanes: LaneResult,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch's schedule probe reduced on its device, without a sync:
+    (5,) int64 of the lane-iterations the pose groups ran (``lane_iters``),
+    the warps' loop trips, the first warp start, the last draw from the
+    pose queue and the last warp exit (``%globaltimer`` ns), written into
+    ``out`` where given (four small launches).  Rows of several launches
+    add up to a row :func:`probe_counts` reads alike."""
+    t = lanes.warp_times
+    if out is None:
+        out = torch.empty(5, dtype=torch.int64, device=t.device)
+    out[0].copy_(lanes.lane_iters)
+    torch.sum(lanes.warp_trips, dim=0, dtype=torch.int64, out=out[1])
+    torch.amin(t[:, 0], dim=0, out=out[2])
+    torch.amax(t[:, 1:], dim=0, out=out[3:])
+    return out
+
+
+def probe_counts(row) -> tuple:
+    """``(lane_iters, slots, span_ns, tail_ns)`` of a :func:`probe_row` or
+    a sum of them: the warp slots executed are the loop trips times 32 (a
+    warp synchronises), the span is last warp exit less first warp start,
+    the tail is last warp exit less the last draw (from then on the card
+    only drains).  The one definition of slot use and tail: the
+    telemetry's counters, :func:`exec_slots` and :func:`schedule_profile`
+    read it."""
+    ran, trips, start, draw, end = (int(v) for v in row)
+    return ran, 32 * trips, end - start, end - draw
+
+
 def exec_slots(lanes: LaneResult) -> int:
-    """The warp slots a launch executed: every warp's loop trips times 32
-    (it synchronises).  ``lane_iters`` over it is the occupied share of the
+    """The warp slots a launch executed (:func:`probe_counts`; it
+    synchronises).  ``lane_iters`` over it is the occupied share of the
     executed slots.  (A 33..64-lane pose whose two warps do not exchange,
     uncapped Quality, counts until the later warp is through, while the
     earlier one waits at the pair's barrier and executes nothing: there the
     share can pass 1.)"""
-    return 32 * int(lanes.warp_trips.sum(dtype=torch.int64))
+    return probe_counts(probe_row(lanes).tolist())[1]
 
 
 def schedule_profile(lanes: LaneResult) -> dict:
@@ -696,19 +735,18 @@ def schedule_profile(lanes: LaneResult) -> dict:
 
     ``span_ms`` is first warp start to last warp exit.  ``tail_ms`` is what
     remains of it after the last piece of work was handed out (the last
-    draw from the pose queue): from then on the card only drains.
-    ``exit_ms`` are the times, from the first start, by which 50%, 90%, 99%
-    and all of the warps had left.  Per solve: the lane-iterations the pose
-    groups ran and the warp slots executed (:func:`exec_slots`);
-    ``occupied_share`` is the first over the second.
+    draw from the pose queue): from then on the card only drains
+    (:func:`probe_counts` defines both).  ``exit_ms`` are the times, from
+    the first start, by which 50%, 90%, 99% and all of the warps had left.
+    Per solve: the lane-iterations the pose groups ran and the warp slots
+    executed (:func:`exec_slots`); ``occupied_share`` is the first over the
+    second.
     """
+    ran, slots, span, tail = probe_counts(probe_row(lanes).tolist())
     t = lanes.warp_times.cpu().numpy()
-    start, draw, end = t[:, 0], t[:, 1], t[:, 2]
-    t0 = int(start.min())
-    span = int(end.max()) - t0
-    tail = int(end.max()) - int(draw.max())
-    q = np.quantile(end - t0, [0.5, 0.9, 0.99, 1.0])
-    b, ran, slots = lanes.x.shape[0], int(lanes.lane_iters), exec_slots(lanes)
+    end = t[:, 2]
+    q = np.quantile(end - int(t[:, 0].min()), [0.5, 0.9, 0.99, 1.0])
+    b = lanes.x.shape[0]
     return {"warps": int(t.shape[0]), "span_ms": span / 1e6,
             "tail_ms": tail / 1e6, "tail_share": tail / max(span, 1),
             "exit_ms": [float(v) / 1e6 for v in q],
@@ -733,13 +771,15 @@ def solve_kernel(plan: KernelPlan, tgt_r: torch.Tensor, tgt_t: torch.Tensor,
     device = _check_cuda_f32(tgt_r=tgt_r, tgt_t=tgt_t, x0=x0)
     b, a = x0.shape[0], plan.a
     with torch.cuda.device(device):
-        seeds = plan.seeds(x0, restart_offset, lane0_stream)
-        seeds = seeds.permute(2, 0, 1).reshape(a, b * plan.s).contiguous()
-        return launch_lanes(
-            plan, seeds, pack_targets(tgt_r, tgt_t),
-            plan.table(device, restart_offset) if plan.reseed else None,
-            x0.T.contiguous() if plan.reseed and plan.quality else None,
-            reseed=plan.reseed, freeze=plan.freeze, fmad=fmad)
+        with telemetry.span("optik.ik.layout"):
+            seeds = plan.seeds(x0, restart_offset, lane0_stream)
+            seeds = seeds.permute(2, 0, 1).reshape(a, b * plan.s).contiguous()
+            tgt = pack_targets(tgt_r, tgt_t)
+            table = plan.table(device, restart_offset) if plan.reseed \
+                else None
+            qx0 = x0.T.contiguous() if plan.reseed and plan.quality else None
+        return launch_lanes(plan, seeds, tgt, table, qx0, reseed=plan.reseed,
+                            freeze=plan.freeze, fmad=fmad)
 
 
 def plain_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt_r: torch.Tensor,
@@ -786,11 +826,13 @@ def solve_plain(plan: KernelPlan, tgt_r: torch.Tensor, tgt_t: torch.Tensor,
     options as :func:`solve_kernel` and the plan's uploaded seed table
     (drawn at ``x0``'s dtype: a float32 solve reads the kernel's)."""
     _check_inputs(tgt_r, tgt_t, x0, plan.a)
-    return plain_lanes(
-        plan, plan.seeds(x0, restart_offset, lane0_stream), tgt_r, tgt_t,
-        plan.table(x0.device, restart_offset, x0.dtype) if plan.reseed
-        else None, x0,
-        reseed=plan.reseed, freeze=plan.freeze, track_active=track_active)
+    with telemetry.span("optik.ik.layout"):
+        seeds = plan.seeds(x0, restart_offset, lane0_stream)
+        table = plan.table(x0.device, restart_offset, x0.dtype) \
+            if plan.reseed else None
+    return plain_lanes(plan, seeds, tgt_r, tgt_t, table, x0,
+                       reseed=plan.reseed, freeze=plan.freeze,
+                       track_active=track_active)
 
 
 def solve_lanes(plan: KernelPlan, tgt_r: torch.Tensor, tgt_t: torch.Tensor,
@@ -811,10 +853,11 @@ def select(plan: KernelPlan, lanes: LaneResult,
            x0: torch.Tensor) -> ik_mod.IKResult:
     """Per-pose winner in the plan's mode (Speed: lowest successful restart
     index; Quality: the success nearest to ``x0``) -> IKResult."""
-    out = ik_mod.select(plan.cfg.solution_mode, lanes.x, lanes.f,
-                        lanes.success, x0, lanes.restart_index,
-                        lanes.succ_iters)
-    return out._replace(lane_iters=lanes.lane_iters)
+    with telemetry.span("optik.ik.select"):
+        out = ik_mod.select(plan.cfg.solution_mode, lanes.x, lanes.f,
+                            lanes.success, x0, lanes.restart_index,
+                            lanes.succ_iters)
+        return out._replace(lane_iters=lanes.lane_iters)
 
 
 def build_kernel_solver(spec, cfg: SolverConfig, ee_offset=None):

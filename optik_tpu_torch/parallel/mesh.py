@@ -46,6 +46,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import telemetry
 from ..config import SolutionMode, SolverConfig
 from ..ops.cuda import lm_kernel
 from ..solver import ik as ik_mod
@@ -124,9 +125,10 @@ class Mesh:
 
     def total(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of a counter over every rank of the mesh."""
-        t = t.clone().reshape(1)
-        dist.all_reduce(t, op=ReduceOp.SUM, group=self.groups["mesh"])
-        return t.reshape(())
+        with telemetry.span("optik.mesh.total"):
+            t = t.clone().reshape(1)
+            dist.all_reduce(t, op=ReduceOp.SUM, group=self.groups["mesh"])
+            return t.reshape(())
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """Pose shards (b, ...) of the data group -> the full (n*b, ...)."""
@@ -152,34 +154,37 @@ class Mesh:
         lowest seed index, as ``argmin`` over the unsharded lanes does.
         Where no rank found the pose, the winner is the first lane's pick.
         """
-        group, d, n = self.groups["seed"], self.index("seed"), \
-            self.shape["seed"]
-        if key.is_floating_point():
-            kmin = key.clone()
-            dist.all_reduce(kmin, op=ReduceOp.MIN, group=group)
-            cand = key == kmin
-            first = torch.where(cand, d, n).to(torch.int32)
-            dist.all_reduce(first, op=ReduceOp.MIN, group=group)
-            mine = cand & (first == d)
-            found = torch.isfinite(kmin)
-        else:
-            # An integer key and the seed index fold into one key: one MIN.
-            key = key.to(torch.int64) * n + d
-            kmin = key.clone()
-            dist.all_reduce(kmin, op=ReduceOp.MIN, group=group)
-            mine = key == kmin
-            found = kmin < ik_mod.INT32_MAX * n
-        dtype = out.x.dtype
-        # One masked sum and one gather carry every per-pose field (the
-        # iteration counts and the flag are exact in the float dtype).
-        picked = torch.cat([out.x, out.cost[:, None],
-                            out.iters[:, None].to(dtype)], dim=1)
-        picked = torch.where(mine[:, None], picked, 0)
-        dist.all_reduce(picked, op=ReduceOp.SUM, group=group)
-        full = self.gather(torch.cat([found[:, None].to(dtype), picked], 1))
-        a = out.x.shape[1]
-        return (full[:, 0] > 0, full[:, 1:1 + a], full[:, 1 + a],
-                full[:, 2 + a].to(torch.int32))
+        with telemetry.span("optik.mesh.merge"):
+            group, d, n = self.groups["seed"], self.index("seed"), \
+                self.shape["seed"]
+            if key.is_floating_point():
+                kmin = key.clone()
+                dist.all_reduce(kmin, op=ReduceOp.MIN, group=group)
+                cand = key == kmin
+                first = torch.where(cand, d, n).to(torch.int32)
+                dist.all_reduce(first, op=ReduceOp.MIN, group=group)
+                mine = cand & (first == d)
+                found = torch.isfinite(kmin)
+            else:
+                # An integer key and the seed index fold into one key: one
+                # MIN.
+                key = key.to(torch.int64) * n + d
+                kmin = key.clone()
+                dist.all_reduce(kmin, op=ReduceOp.MIN, group=group)
+                mine = key == kmin
+                found = kmin < ik_mod.INT32_MAX * n
+            dtype = out.x.dtype
+            # One masked sum and one gather carry every per-pose field (the
+            # iteration counts and the flag are exact in the float dtype).
+            picked = torch.cat([out.x, out.cost[:, None],
+                                out.iters[:, None].to(dtype)], dim=1)
+            picked = torch.where(mine[:, None], picked, 0)
+            dist.all_reduce(picked, op=ReduceOp.SUM, group=group)
+            full = self.gather(torch.cat([found[:, None].to(dtype), picked],
+                                         1))
+            a = out.x.shape[1]
+            return (full[:, 0] > 0, full[:, 1:1 + a], full[:, 1 + a],
+                    full[:, 2 + a].to(torch.int32))
 
 
 def make_mesh(devices: Optional[Sequence[int]] = None,
@@ -302,28 +307,29 @@ def build_seed_sharded_solver(robot, cfg: SolverConfig, mesh: Mesh):
     off = d * r_sub
 
     def solve(tgt_r, tgt_t, x0) -> ik_mod.IKResult:
-        b = tgt_r.shape[0]
-        if b % n_data:
-            raise ValueError(
-                f"batch {b} must be a multiple of data_axis = {n_data}")
-        tr, tt, x0 = _inputs(robot, tgt_r, tgt_t, x0)
-        rows = mesh.shard(b)
-        x0_rows = x0[rows]
-        lanes = lm_kernel.solve_lanes(plan, tr[rows], tt[rows], x0_rows,
-                                      off, d > 0)
-        res = lm_kernel.select(plan, lanes, x0_rows)
-        key = res.sel_key
-        if speed:
-            # This rank's winner as a global restart index.
-            key = torch.where(res.found, key.to(torch.int64) + off,
-                              ik_mod.INT32_MAX)
-        found, x, cost, iters = mesh.merge(res, key)
-        x = torch.where(found[:, None], x, x0)
-        cost = torch.where(found, cost, torch.inf)
-        iters = torch.where(found, iters, 0)
-        return ik_mod.IKResult(found=found, x=x, cost=cost, iters=iters,
-                               lane_iters=mesh.total(res.lane_iters),
-                               found_count=found.sum())
+        with telemetry.span("optik.mesh.solve"):
+            b = tgt_r.shape[0]
+            if b % n_data:
+                raise ValueError(
+                    f"batch {b} must be a multiple of data_axis = {n_data}")
+            tr, tt, x0 = _inputs(robot, tgt_r, tgt_t, x0)
+            rows = mesh.shard(b)
+            x0_rows = x0[rows]
+            lanes = lm_kernel.solve_lanes(plan, tr[rows], tt[rows], x0_rows,
+                                          off, d > 0)
+            res = lm_kernel.select(plan, lanes, x0_rows)
+            key = res.sel_key
+            if speed:
+                # This rank's winner as a global restart index.
+                key = torch.where(res.found, key.to(torch.int64) + off,
+                                  ik_mod.INT32_MAX)
+            found, x, cost, iters = mesh.merge(res, key)
+            x = torch.where(found[:, None], x, x0)
+            cost = torch.where(found, cost, torch.inf)
+            iters = torch.where(found, iters, 0)
+            return ik_mod.IKResult(found=found, x=x, cost=cost, iters=iters,
+                                   lane_iters=mesh.total(res.lane_iters),
+                                   found_count=found.sum())
 
     return solve
 

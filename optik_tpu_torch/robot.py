@@ -49,6 +49,7 @@ from .models.chain import ChainSpec
 from .ops import kinematics as K
 from .ops import soa
 from .ops.cuda import lm_kernel
+from . import telemetry
 from .solver import diffik
 from .solver import ik as ik_mod
 from .utils.precision import use_full_f32_matmuls
@@ -354,27 +355,32 @@ class Robot:
         full budget.  Every path here is the single-shot schedule the
         rescue restores, so the flag changes nothing, no pose is re-solved
         and ``overflow_count`` is 0.
+
+        While :mod:`~optik_tpu_torch.telemetry` records, a call is the
+        root span ``optik.ik_batch`` (each round of an unlimited solve is
+        one).
         """
         if config.max_restarts == 0 and _restart_offset is None:
             return self._ik_batch_unlimited(config, tgt_r, tgt_t, x0,
                                             ee_offset, validate_seeds)
-        if validate_seeds:
-            self._check_seeds(x0)
-        tgt_r, tgt_t, x0 = self._tensor(tgt_r), self._tensor(tgt_t), \
-            self._tensor(x0)
-        ee_pair = None if ee_offset is None else _parse_pose(ee_offset)
-        on_kernel, fn = self._batch_solver(config, ee_pair)
-        off = int(_restart_offset or 0)
-        if on_kernel:
-            res = fn(tgt_r, tgt_t, x0, restart_offset=off)
-        else:
-            ee_r = ee_t = None
-            if ee_pair is not None:
-                ee_r = self._tensor(ee_pair[0])
-                ee_t = self._tensor(ee_pair[1])
-            res = fn(tgt_r, tgt_t, x0, ee_r, ee_t, restart_offset=off)
-        return res._replace(sel_key=None, overflow_count=torch.zeros(
-            (), dtype=torch.int32, device=self.device))
+        with telemetry.span("optik.ik_batch"):
+            if validate_seeds:
+                self._check_seeds(x0)
+            tgt_r, tgt_t, x0 = self._tensor(tgt_r), self._tensor(tgt_t), \
+                self._tensor(x0)
+            ee_pair = None if ee_offset is None else _parse_pose(ee_offset)
+            on_kernel, fn = self._batch_solver(config, ee_pair)
+            off = int(_restart_offset or 0)
+            if on_kernel:
+                res = fn(tgt_r, tgt_t, x0, restart_offset=off)
+            else:
+                ee_r = ee_t = None
+                if ee_pair is not None:
+                    ee_r = self._tensor(ee_pair[0])
+                    ee_t = self._tensor(ee_pair[1])
+                res = fn(tgt_r, tgt_t, x0, ee_r, ee_t, restart_offset=off)
+            return res._replace(sel_key=None, overflow_count=torch.zeros(
+                (), dtype=torch.int32, device=self.device))
 
     # --- differential IK --------------------------------------------------
 

@@ -33,6 +33,7 @@ from ..config import SolutionMode, SolverConfig
 from ..ops import kinematics as K
 from ..ops import soa
 from .. import random as rnd
+from .. import telemetry
 from . import lm, lm_soa
 
 INT32_MAX = 2**31 - 1
@@ -218,11 +219,13 @@ def build_batch_solver(spec, cfg: SolverConfig, dtype=torch.float64, *,
             rows = mesh.shard(tgt_r.shape[0])
             tgt_r, tgt_t, x0 = tgt_r[rows], tgt_t[rows], x0[rows]
         b = tgt_r.shape[0]
-        table = table_for(int(restart_offset))
-        seeds = torch.cat([x0[:, None, :],
-                           table[1:s].expand(b, s - 1, a)], dim=1)[:, lanes]
-        lane_index = torch.arange(s, dtype=torch.int32,
-                                  device=device)[lanes]
+        with telemetry.span("optik.ik.layout"):
+            table = table_for(int(restart_offset))
+            seeds = torch.cat([x0[:, None, :],
+                               table[1:s].expand(b, s - 1, a)],
+                              dim=1)[:, lanes]
+            lane_index = torch.arange(s, dtype=torch.int32,
+                                      device=device)[lanes]
         if ee_r is not None:
             ee_r = as_tensor(ee_r, dtype, device)
             ee_t = as_tensor(ee_t, dtype, device)
@@ -241,11 +244,12 @@ def build_batch_solver(spec, cfg: SolverConfig, dtype=torch.float64, *,
             s_lanes=s, reduce=None if mesh is None else mesh.lane_reduce())
         # Speed orders lanes by restart index: the lane's own index (global
         # under a mesh) when each lane runs one restart.
-        order = res.restart_index
-        if order is None:
-            order = lane_index.expand(b, lane_index.shape[0])
-        out = select(cfg.solution_mode, res.x, res.f, res.success, x0,
-                     order, res.succ_iters)
+        with telemetry.span("optik.ik.select"):
+            order = res.restart_index
+            if order is None:
+                order = lane_index.expand(b, lane_index.shape[0])
+            out = select(cfg.solution_mode, res.x, res.f, res.success, x0,
+                         order, res.succ_iters)
         lane_iters = torch.tensor(res.iters * b * seeds.shape[1],
                                   dtype=torch.int64, device=device)
         if mesh is None:

@@ -29,11 +29,13 @@ the card (f32 in, f32 out on the device, bounds, tracking against an f64
 Jacobian, bitwise repeats and batch invariance, rescue, the ADMM route).
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
 
-from optik_tpu_torch import Robot, SolverConfig
+from optik_tpu_torch import Robot, SolverConfig, telemetry
 from optik_tpu_torch.benchmarks import (bench_fp32_peak, exp_bisect,
                                         exp_warp_probe)
 from optik_tpu_torch.models import asset_path
@@ -143,6 +145,55 @@ def test_launch_counter_and_determinism(robot):
     assert torch.equal(a.x[:100], head.x) and torch.equal(a.cost[:100],
                                                           head.cost)
     assert float(a.found.float().mean()) >= 0.99
+
+
+def test_telemetry_counters_and_card_clock(robot):
+    """The kernel path recorded: the launch's spans, the counters reduced
+    on the card equal the probe's own reduction launch by launch, the
+    card's clock against the host's to well under 0.05 ms, and each
+    launch's last warp exit on the host clock inside its call."""
+    tr, tt, x0 = _problem(robot, seed=2)
+    off = robot.ik_batch(CFG, tr, tt, x0)
+    plan = lm_kernel.KernelPlan(robot.spec, CFG)
+    telemetry.reset()
+    calls, rows = [], []
+    try:
+        with telemetry.recording():
+            for _ in range(3):
+                t0 = time.perf_counter_ns()
+                res = robot.ik_batch(CFG, tr, tt, x0)
+                torch.cuda.synchronize()
+                calls.append((t0, time.perf_counter_ns(), res))
+            lanes = lm_kernel.solve_kernel(plan, tr, tt, x0)
+            rows.append(lm_kernel.probe_counts(
+                lm_kernel.probe_row(lanes).tolist()))
+        out = telemetry.export()
+    finally:
+        telemetry.reset()
+    assert all(torch.equal(off.x, r.x) and torch.equal(off.found, r.found)
+               for _, _, r in calls)
+    # The direct solve_kernel call is a root of its own (the layout).
+    assert out["calls"] == {"optik.ik_batch": 3, "optik.ik.layout": 1,
+                            "optik.lm.launch": 1}
+    for name in ("optik.ik.layout", "optik.lm.launch"):
+        assert out["spans"][name]["count"] == 4, name
+    assert out["spans"]["optik.ik.select"]["count"] == 3
+    c = out["counters"]
+    assert c["lm.launches"] == 4
+    card = out["devices"][str(x0.device)]
+    assert card["launches"] == 4 and card["rows_dropped"] == 0
+    assert 0 <= card["clock_error_ns"] < 50_000
+    ran, slots, span, tail = rows[0]
+    assert card["span_ns"][-1] == span and card["tail_ns"][-1] == tail
+    prof = lm_kernel.schedule_profile(lanes)
+    assert abs(100 * ran / slots - 100 * prof["occupied_share"]) < 0.1
+    assert c["lm.lane_iters"] == 3 * int(off.lane_iters) + ran
+    # B = 512 fills few of the card's warps: most draw one pose or none.
+    assert 0 < c["lm.lane_iters"] / c["lm.slots"] <= 1.0
+    assert 0 < c["lm.tail_ns"] < c["lm.span_ns"] == sum(card["span_ns"])
+    err = card["clock_error_ns"]
+    for (t0, t1, _), exit_ns in zip(calls, card["exit_ns"]):
+        assert t0 - err <= exit_ns <= t1 + err
 
 
 def test_kernel_rejects_float64(robot):
