@@ -395,8 +395,9 @@ def schedule_line(lm_kernel, lanes, what):
           f"90 / 99 / 100% of the warps had left by "
           + " / ".join(f"{v:.3f}" for v in prof["exit_ms"]) + " ms; pose "
           f"groups ran {prof['lane_iters_per_solve']:.1f} lane-iterations "
-          f"per solve in {prof['executed_slots_per_solve']:.1f} executed "
-          f"slots: occupied share {prof['occupied_share']:.3f}", flush=True)
+          f"per solve in {prof['held_slots_per_solve']:.1f} held slots "
+          f"({prof['executed_slots_per_solve']:.1f} executed): occupied "
+          f"share {prof['occupied_share']:.3f}", flush=True)
     return prof
 
 

@@ -75,7 +75,11 @@
 //     number of times.
 //   * Schedule probe: lane 0 of each warp stores %globaltimer at its start,
 //     at its last successful draw and at its exit, and its loop trips; each
-//     group stores the iterations its pose ran, times S.  A one-thread
+//     group stores the iterations its pose ran, times S.  The Quality build
+//     also stores, where the wrapper asks for it (lane_busy), the
+//     iterations its lanes spent inside an attempt, summed over the group:
+//     a lane notes the iteration at which its restarts ran out, and the
+//     group sums the notes when its pose is through.  A one-thread
 //     kernel (optik_lm_globaltimer) reads the same clock, for the host to
 //     put the probe's times on its own clock.
 //   * Math: the same polynomial atan2 and sincos as the plain version's
@@ -1446,6 +1450,7 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
                 int* __restrict__ sit_out,         // (L,)
                 int* __restrict__ queue,           // (1,) next pose index, starts at 0
                 int* __restrict__ pose_iters,      // (B, warps of a group): iterations * S
+                int* __restrict__ lane_busy,       // (B, warps of a group) or null, Quality
                 int* __restrict__ warp_trips,      // (launched warps,)
                 unsigned long long* __restrict__ times,  // (launched warps, 3)
                 float* __restrict__ scratch) {  // ScratchLane's words (run-time chain)
@@ -1463,6 +1468,8 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
   const int n_lanes = n_pose * s_lanes;
   // Quality best-tracking runs only when lanes stride a restart budget.
   const bool track_best = QUALITY && reseed;
+  // Quality: the lanes' busy iterations, where the wrapper asks for them.
+  const bool track_busy = QUALITY && lane_busy != nullptr;
   const bool use_l = WEIGHTED && !o.lin_id, use_a = WEIGHTED && !o.ang_id;
 
   if (lane == 0) {
@@ -1499,6 +1506,9 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
   vec.clear_best(q0, bx);
   float bd = INFINITY, bf = INFINITY;
   int bi = 0, succ_cnt = 0;
+  // Quality: the group iteration by whose end this lane's restarts had run
+  // out (-1: not yet), for lane_busy.
+  int busy_end = -1;
 
   __shared__ unsigned xchg[2][2];
   __shared__ int drawn[2];
@@ -1521,6 +1531,13 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
     if (__any_sync(kFullMask, refill)) {
       if (fin) {
         if (seed == half * 32) pose_iters[two_warps ? pose * 2 + half : pose] = it * s_lanes;
+        if constexpr (QUALITY) {
+          if (track_busy) {  // fin is the same for the whole group
+            const int busy = has_lane ? (busy_end >= 0 ? busy_end : it) : 0;
+            const int sum = (int)__reduce_add_sync(gmask, (unsigned)busy);
+            if (seed == half * 32) lane_busy[two_warps ? pose * 2 + half : pose] = sum;
+          }
+        }
         if (has_lane) {
           if (track_best) {
             vec.store_best(bx, x_out, n_lanes, l);
@@ -1584,6 +1601,7 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
           bf = INFINITY;
           bi = 0;
           succ_cnt = 0;
+          busy_end = -1;
         }
         pair_done = false;
         it = 0;
@@ -1743,6 +1761,9 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
     }
     stopped = stopped || pose_done;
     pending_next = pending_next && !pose_done;
+    if constexpr (QUALITY) {
+      if (track_busy && stopped && busy_end < 0) busy_end = it + 1;
+    }
 
     lam = lam_next;
     nu = nu_next;
@@ -1871,15 +1892,18 @@ const char* optik_lm_error_string(int code) {
 // `dev_chain`).  The kernel writes x_out, f_out,
 // succ_out, idx_out and sit_out for the n_pose * s_lanes lanes, pose_iters
 // for every pose (the iterations its group ran times s_lanes; two entries
-// per pose when s_pad is 64, one per warp), and
-// warp_trips and times (3 per warp) for the optik_lm_grid(n_pose, s_pad) *
-// block / 32 warps it launches.
+// per pose when s_pad is 64, one per warp), lane_busy alike where it is not
+// null and the library is the Quality instantiation (the iterations the
+// pose's lanes ran before their restarts ran out or the pose ended, summed
+// over the lanes of each warp), and warp_trips and times (3 per warp) for
+// the optik_lm_grid(n_pose, s_pad) * block / 32 warps it launches.
 int optik_lm_solve(const float* chain, int chain_len, const float* opts, int n_opts,
                    int n_pose, int s_lanes, int s_pad, int total_restarts, int reseed,
                    int freeze, const float* seeds, const float* tgt, const float* table,
                    const float* qx0, float* x_out, float* f_out, int8_t* succ_out,
                    int* idx_out, int* sit_out, int* queue, int* pose_iters,
-                   int* warp_trips, unsigned long long* times, const float* dev_chain,
+                   int* lane_busy, int* warp_trips, unsigned long long* times,
+                   const float* dev_chain,
                    float* scratch, long long scratch_words, void* stream) {
 #if !OPTIK_RUNTIME_CHAIN
   const int dof = kDof;
@@ -1950,7 +1974,7 @@ int optik_lm_solve(const float* chain, int chain_len, const float* opts, int n_o
   lm_solve_kernel<KernelLane, kQuality, kWeighted, kWide><<<blocks, kBlockThreads, 0, st>>>(
       rt, o, n_pose, s_lanes, s_pad, total_restarts, reseed, freeze, max_total_iters, seeds,
       tgt, table, qx0, x_out, f_out, succ_out, idx_out, sit_out, queue, pose_iters,
-      warp_trips, times, scratch);
+      lane_busy, warp_trips, times, scratch);
   return (int)cudaGetLastError();
 }
 

@@ -96,6 +96,13 @@ class LaneResult(NamedTuple):
     # ((warps, 3) int64; :func:`schedule_profile` reads them).
     warp_trips: Optional[torch.Tensor] = None
     warp_times: Optional[torch.Tensor] = None
+    # Only from the kernel, per pose and warp of its group ((B, 1) or, for a
+    # pose on a pair of warps, (B, 2) int32): the iterations the warp ran on
+    # the pose times S, and, from the Quality build while telemetry
+    # records, the iterations the warp's lanes spent inside an attempt,
+    # summed (None otherwise).
+    pose_iters: Optional[torch.Tensor] = None
+    lane_busy: Optional[torch.Tensor] = None
 
 
 def chain_header(consts) -> str:
@@ -185,7 +192,7 @@ def _load_library(header: Optional[str], quality: bool, weighted: bool,
     vp, ci = ctypes.c_void_p, ctypes.c_int
     # chain, chain_len, opts; n_opts .. freeze; seeds .. times, dev_chain,
     # scratch; scratch_words; stream.
-    lib.optik_lm_solve.argtypes = ([vp, ci, vp] + [ci] * 7 + [vp] * 15
+    lib.optik_lm_solve.argtypes = ([vp, ci, vp] + [ci] * 7 + [vp] * 16
                                    + [ctypes.c_longlong, vp])
     lib.optik_lm_solve.restype = ci
     lib.optik_lm_error_string.argtypes = [ci]
@@ -566,6 +573,16 @@ def pack_targets(tgt_r: torch.Tensor, tgt_t: torch.Tensor) -> torch.Tensor:
     return torch.cat([tgt_r.reshape(b, 9).T, tgt_t.T], dim=0).contiguous()
 
 
+def lane_busy_words(plan: KernelPlan, b: int) -> int:
+    """The schedule probe's words for the lanes' busy iterations of a
+    launch over ``b`` poses: one per pose and warp of its group from the
+    Quality build while telemetry records, else 0 (off, the probe is
+    what it always was)."""
+    if not (plan.quality and telemetry.enabled()):
+        return 0
+    return b * (2 if plan.s_pad == 64 else 1)
+
+
 def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
                  table: Optional[torch.Tensor] = None,
                  qx0: Optional[torch.Tensor] = None, *, reseed: bool,
@@ -582,10 +599,12 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
     iterations the pose's group ran (until its last lane stopped), times S.
     It does not depend on how the queue packed poses into warps, and is
     the one reduction a launch pays (two for a pose across two warps); the
-    schedule probe (``warp_trips``, ``warp_times``) comes back as the kernel
-    wrote it, for :func:`exec_slots` and :func:`schedule_profile` to reduce
-    when someone asks; while telemetry records, :func:`probe_row` reduces
-    it on the card into the telemetry's counters.
+    schedule probe (``warp_trips``, ``warp_times``, ``pose_iters``) comes
+    back as the kernel wrote it, for :func:`exec_slots` and
+    :func:`schedule_profile` to reduce when someone asks; while telemetry
+    records, the Quality build also writes ``lane_busy`` (in the probe's
+    one allocation, which is that much longer), and :func:`probe_row`
+    reduces the probe on the card into the telemetry's counters.
     """
     global LAUNCHES
     a, s = plan.a, plan.s
@@ -614,6 +633,7 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
         raise ValueError("the group freeze is Speed mode's")
     lib, _ = plan.library(freeze, fmad)
     halves = 2 if plan.s_pad == 64 else 1
+    busy_words = lane_busy_words(plan, b)
     n_warps = lib.optik_lm_grid(b, plan.s_pad) \
         * lib.optik_lm_block_threads() // 32
     if n_warps < 1:
@@ -640,11 +660,15 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
         ridx = empty(n_lanes, torch.int32)
         sit = empty(n_lanes, torch.int32)
         # The queue's counter and the schedule probe, one allocation: times
-        # (int64, so first), trips, pose iterations, counter.
-        probe = empty(7 * n_warps + b * halves + 1, torch.int32)
+        # (int64, so first), trips, pose iterations, lanes' busy iterations
+        # (Quality, telemetry on), counter.
+        probe = empty(7 * n_warps + b * halves + busy_words + 1, torch.int32)
         times = probe[:6 * n_warps].view(torch.int64).view(n_warps, 3)
         trips = probe[6 * n_warps:7 * n_warps]
-        pose_iters = probe[7 * n_warps:-1].view(b, halves)
+        pose_iters = probe[7 * n_warps:7 * n_warps + b * halves].view(b,
+                                                                    halves)
+        busy = probe[7 * n_warps + b * halves:-1].view(b, halves) \
+            if busy_words else None
         queue = probe[-1:]
         stream = torch.cuda.current_stream(device).cuda_stream
         use_qx0 = reseed and plan.quality
@@ -657,6 +681,7 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
             qx0.data_ptr() if use_qx0 else None, x_out.data_ptr(),
             f_out.data_ptr(), succ.data_ptr(), ridx.data_ptr(),
             sit.data_ptr(), queue.data_ptr(), pose_iters.data_ptr(),
+            None if busy is None else busy.data_ptr(),
             trips.data_ptr(), times.data_ptr(),
             None if dev_chain is None else dev_chain.data_ptr(),
             None if scratch is None else scratch.data_ptr(), words, stream)
@@ -667,14 +692,14 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
         LAUNCHES += 1
         telemetry.count("lm.launches")
         # A pose across two warps ran until the later of the two was through.
-        if halves == 2:
-            pose_iters = pose_iters.amax(dim=1)
-        lane_iters = pose_iters.sum(dtype=torch.int64)
+        group_iters = pose_iters.amax(dim=1) if halves == 2 else pose_iters
+        lane_iters = group_iters.sum(dtype=torch.int64)
     lanes = LaneResult(
         x=x_out.reshape(a, b, s).permute(1, 2, 0),
         f=f_out.reshape(b, s), success=succ.reshape(b, s).bool(),
         restart_index=ridx.reshape(b, s), succ_iters=sit.reshape(b, s),
-        lane_iters=lane_iters, warp_trips=trips, warp_times=times)
+        lane_iters=lane_iters, warp_trips=trips, warp_times=times,
+        pose_iters=pose_iters, lane_busy=busy)
     row = telemetry.launch_row(device, lib)
     if row is not None:
         probe_row(lanes, out=row)
@@ -692,41 +717,65 @@ def pose_lane_iters(active_iters: torch.Tensor) -> torch.Tensor:
 def probe_row(lanes: LaneResult,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch's schedule probe reduced on its device, without a sync:
-    (5,) int64 of the lane-iterations the pose groups ran (``lane_iters``),
-    the warps' loop trips, the first warp start, the last draw from the
-    pose queue and the last warp exit (``%globaltimer`` ns), written into
-    ``out`` where given (four small launches).  Rows of several launches
-    add up to a row :func:`probe_counts` reads alike."""
+    (``telemetry.PROBE_WIDTH``,) int64 of the lane-iterations the pose
+    groups ran (``lane_iters``), the warps' loop trips, the first warp
+    start, the last draw from the pose queue and the last warp exit
+    (``%globaltimer`` ns),
+    the warp slots a pair's earlier warp waited for the later one (32 per
+    iteration between them, summed over the poses on a pair of warps) and
+    the lanes' busy iterations (``lane_busy`` summed; 0 without it),
+    written into ``out`` where given (six small launches, four more for
+    poses on pairs of warps).  Rows of several launches add up to a row
+    :func:`probe_counts` reads alike."""
     t = lanes.warp_times
     if out is None:
-        out = torch.empty(5, dtype=torch.int64, device=t.device)
+        out = torch.empty(telemetry.PROBE_WIDTH, dtype=torch.int64,
+                          device=t.device)
     out[0].copy_(lanes.lane_iters)
     torch.sum(lanes.warp_trips, dim=0, dtype=torch.int64, out=out[1])
     torch.amin(t[:, 0], dim=0, out=out[2])
-    torch.amax(t[:, 1:], dim=0, out=out[3:])
+    torch.amax(t[:, 1:], dim=0, out=out[3:5])
+    pi = lanes.pose_iters
+    if pi is not None and pi.shape[1] == 2:
+        # pose_iters holds iterations times S: a difference of d of them
+        # is d * S, and the waiting warp idles 32 slots an iteration.
+        gap = (pi[:, 0] - pi[:, 1]).abs_()
+        torch.sum(gap, dim=0, dtype=torch.int64, out=out[5])
+        out[5:6].mul_(32).floor_divide_(lanes.x.shape[1])
+    else:
+        out[5:6].zero_()
+    if lanes.lane_busy is not None:
+        torch.sum(lanes.lane_busy, dim=(0, 1), dtype=torch.int64,
+                  out=out[6])
+    else:
+        out[6:7].zero_()
     return out
 
 
 def probe_counts(row) -> tuple:
-    """``(lane_iters, slots, span_ns, tail_ns)`` of a :func:`probe_row` or
-    a sum of them: the warp slots executed are the loop trips times 32 (a
-    warp synchronises), the span is last warp exit less first warp start,
-    the tail is last warp exit less the last draw (from then on the card
-    only drains).  The one definition of slot use and tail: the
-    telemetry's counters, :func:`exec_slots` and :func:`schedule_profile`
-    read it."""
-    ran, trips, start, draw, end = (int(v) for v in row)
-    return ran, 32 * trips, end - start, end - draw
+    """``(lane_iters, slots, span_ns, tail_ns, pair_wait_slots,
+    lane_busy_iters)`` of a :func:`probe_row` or a sum of them: the warp
+    slots executed are the loop trips times 32 (a warp synchronises), the
+    span is last warp exit less first warp start, the tail is last warp
+    exit less the last draw (from then on the card only drains), the pair
+    wait the slots an earlier warp of a pair idled at the pair's barrier
+    until the later one was through, the busy iterations those the lanes
+    spent inside an attempt.  The one definition of slot use, tail and the
+    pair's wait: the telemetry's counters, :func:`exec_slots` and
+    :func:`schedule_profile` read it."""
+    ran, trips, start, draw, end, wait, busy = (int(v) for v in row)
+    return ran, 32 * trips, end - start, end - draw, wait, busy
 
 
 def exec_slots(lanes: LaneResult) -> int:
-    """The warp slots a launch executed (:func:`probe_counts`; it
-    synchronises).  ``lane_iters`` over it is the occupied share of the
-    executed slots.  (A 33..64-lane pose whose two warps do not exchange,
-    uncapped Quality, counts until the later warp is through, while the
-    earlier one waits at the pair's barrier and executes nothing: there the
-    share can pass 1.)"""
-    return probe_counts(probe_row(lanes).tolist())[1]
+    """The warp slots a launch held (:func:`probe_counts`; it
+    synchronises): the slots its warps executed, and those an earlier warp
+    of a pair spent waiting at the pair's barrier for the later one.
+    ``lane_iters`` over it is the occupied share of the slots, at most 1
+    on every path (a pose on a pair of warps counts until the later warp
+    is through, on both warps)."""
+    counts = probe_counts(probe_row(lanes).tolist())
+    return counts[1] + counts[4]
 
 
 def schedule_profile(lanes: LaneResult) -> dict:
@@ -738,11 +787,17 @@ def schedule_profile(lanes: LaneResult) -> dict:
     draw from the pose queue): from then on the card only drains
     (:func:`probe_counts` defines both).  ``exit_ms`` are the times, from
     the first start, by which 50%, 90%, 99% and all of the warps had left.
-    Per solve: the lane-iterations the pose groups ran and the warp slots
-    executed (:func:`exec_slots`); ``occupied_share`` is the first over the
-    second.
+    Per solve: the lane-iterations the pose groups ran, the warp slots
+    executed (32 per loop trip) and the slots held (:func:`exec_slots`:
+    executed, and waited at a pair's barrier); ``occupied_share`` is the
+    lane-iterations over the held slots, ``pair_wait_share``
+    the waited slots over the held ones, and ``lane_busy_share`` the
+    lanes' busy iterations over the held ones (None where the launch did
+    not record them).
     """
-    ran, slots, span, tail = probe_counts(probe_row(lanes).tolist())
+    ran, executed, span, tail, wait, busy = probe_counts(
+        probe_row(lanes).tolist())
+    slots = executed + wait
     t = lanes.warp_times.cpu().numpy()
     end = t[:, 2]
     q = np.quantile(end - int(t[:, 0].min()), [0.5, 0.9, 0.99, 1.0])
@@ -751,8 +806,12 @@ def schedule_profile(lanes: LaneResult) -> dict:
             "tail_ms": tail / 1e6, "tail_share": tail / max(span, 1),
             "exit_ms": [float(v) / 1e6 for v in q],
             "lane_iters_per_solve": ran / b,
-            "executed_slots_per_solve": slots / b,
-            "occupied_share": ran / max(slots, 1)}
+            "executed_slots_per_solve": executed / b,
+            "held_slots_per_solve": slots / b,
+            "occupied_share": ran / max(slots, 1),
+            "pair_wait_share": wait / max(slots, 1),
+            "lane_busy_share": None if lanes.lane_busy is None
+            else busy / max(slots, 1)}
 
 
 def solve_kernel(plan: KernelPlan, tgt_r: torch.Tensor, tgt_t: torch.Tensor,

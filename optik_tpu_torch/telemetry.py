@@ -40,9 +40,15 @@ schedule probe: each launch reduces it on the card into a row of a ring of
 on the card before it is overwritten), without a sync, until :func:`export`
 reads them through ``lm_kernel.probe_counts``: ``lm.lane_iters`` (the pose
 groups' iterations times S), ``lm.slots`` (the warp slots executed, 32 per
-warp loop trip), ``lm.span_ns`` (last warp exit less first warp start) and
+warp loop trip), ``lm.span_ns`` (last warp exit less first warp start),
 ``lm.tail_ns`` (last warp exit less the last draw from the pose queue),
-summed over launches, and per launch its span, tail and last warp exit.
+``lm.pair_wait_slots`` (for poses on a pair of warps, 32 times the
+iterations by which one warp's run on the pose was shorter than the
+other's: the slots the earlier warp waited at the pair's barrier, from
+the probe's per-pose iterations) and ``lm.lane_busy_iters`` (the
+iterations the lanes spent inside an attempt, which the Quality build
+records per pose while telemetry records; 0 from Speed launches), summed
+over launches, and per launch its span, tail and last warp exit.
 
 **The card's clock.**  :func:`export` reads each card's ``%globaltimer``
 against ``perf_counter_ns`` (a one-thread read, bracketed by the host clock
@@ -75,8 +81,9 @@ LAUNCH_ROWS = 4096
 CALIBRATION_ROUNDS = 16
 # The counters lm_kernel.probe_counts reads from a sum of probe rows, and
 # the width of a row (lm_kernel.probe_row).
-PROBE_SUMS = ("lm.lane_iters", "lm.slots", "lm.span_ns", "lm.tail_ns")
-PROBE_WIDTH = 5
+PROBE_SUMS = ("lm.lane_iters", "lm.slots", "lm.span_ns", "lm.tail_ns",
+              "lm.pair_wait_slots", "lm.lane_busy_iters")
+PROBE_WIDTH = 7
 
 _OFF = contextlib.nullcontext()
 _on = False

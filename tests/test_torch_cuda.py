@@ -183,7 +183,9 @@ def test_telemetry_counters_and_card_clock(robot):
     card = out["devices"][str(x0.device)]
     assert card["launches"] == 4 and card["rows_dropped"] == 0
     assert 0 <= card["clock_error_ns"] < 50_000
-    ran, slots, span, tail = rows[0]
+    ran, slots, span, tail, wait, busy = rows[0]
+    # Speed at S = 8: no pose on a pair of warps, no busy count.
+    assert wait == 0 and busy == 0
     assert card["span_ns"][-1] == span and card["tail_ns"][-1] == tail
     prof = lm_kernel.schedule_profile(lanes)
     assert abs(100 * ran / slots - 100 * prof["occupied_share"]) < 0.1
@@ -440,6 +442,57 @@ def test_queue_edges_uncontracted_kernel_is_bitwise_plain(robot, case):
         plan.s_pad, 32)
     prof = lm_kernel.schedule_profile(k)
     assert prof["span_ms"] > 0 and 0 <= prof["tail_share"] <= 1
+
+
+# (restarts, seed lanes, poses): uncapped Quality on a pair of warps that
+# meet only at their draws (64 lanes, and 48 in 32 + 16), and on groups
+# of 16 threads inside a warp (12 lanes).
+PAIR_CASES = [(256, 64, 2048), (96, 48, 3000), (48, 12, 6000)]
+
+
+@pytest.mark.parametrize("restarts,seeds,b", PAIR_CASES)
+def test_quality_pair_wait_and_lane_busy_counters(robot, restarts, seeds,
+                                                  b):
+    """The counters of an uncapped Quality launch: the pair's wait is 32
+    slots for every iteration between its two warps' runs on a pose (from
+    ``pose_iters``), the slots held (executed and waited) bound the
+    lane-iterations, so slot use is at most 100%, and the lanes' busy
+    iterations are the plain loop's per-lane active iterations, summed
+    per warp (the uncontracted build runs the plain schedule bitwise)."""
+    cfg = QUALITY.replace(max_restarts=restarts, seed_batch=seeds,
+                          max_iters=48)
+    plan = lm_kernel.KernelPlan(robot.spec, cfg)
+    tr, tt, x0 = _problem(robot, seed=8, b=b)
+    off = lm_kernel.solve_kernel(plan, tr, tt, x0, fmad=False)
+    assert off.lane_busy is None
+    telemetry.reset()
+    try:
+        with telemetry.recording():
+            k = lm_kernel.solve_kernel(plan, tr, tt, x0, fmad=False)
+        c = telemetry.export()["counters"]
+    finally:
+        telemetry.reset()
+    for name in LANE_FIELDS:
+        assert torch.equal(getattr(k, name), getattr(off, name)), name
+    halves = 2 if plan.s_pad == 64 else 1
+    assert k.pose_iters.shape == k.lane_busy.shape == (b, halves)
+    it = k.pose_iters.long() // plan.s
+    wait = 32 * int((it[:, 0] - it[:, -1]).abs().sum())
+    assert c["lm.pair_wait_slots"] == wait
+    assert (wait > 0) == (halves == 2)
+    held = c["lm.slots"] + c["lm.pair_wait_slots"]
+    assert held == lm_kernel.exec_slots(k)
+    assert 0 < c["lm.lane_iters"] <= held
+    assert 0 < c["lm.lane_busy_iters"] < c["lm.lane_iters"]
+    prof = lm_kernel.schedule_profile(k)
+    assert 0 < prof["lane_busy_share"] < prof["occupied_share"] <= 1
+    p = lm_kernel.solve_plain(plan, tr, tt, x0, track_active=True)
+    act = p.active_iters.long()
+    per_warp = torch.stack([act[:, :32].sum(1), act[:, 32:].sum(1)], 1) \
+        if halves == 2 else act.sum(1, keepdim=True)
+    assert torch.equal(k.lane_busy.long(), per_warp)
+    assert int(k.lane_iters) == int(lm_kernel.pose_lane_iters(
+        p.active_iters))
 
 
 def test_back_to_back_launches_reset_the_queue(robot):

@@ -8,7 +8,8 @@
     ``dropped`` count; spans from several threads;
   * the probe's reduction (``lm_kernel.probe_row``, ``probe_counts``) on a
     hand-made probe against ``schedule_profile`` and ``exec_slots``, and
-    the card counters summed from it;
+    the card counters summed from it; on a hand-made probe of poses on
+    pairs of warps, the pair's wait and the lanes' busy iterations;
   * a 2-rank gloo mesh: ``optik.mesh.merge`` and ``optik.mesh.total`` once
     per call on each rank.
 
@@ -82,25 +83,42 @@ def test_off_path_allocates_nothing_and_annotates_nothing(monkeypatch):
 
     monkeypatch.setattr(telemetry, "record_function", refuse)
     assert telemetry.span("a") is telemetry.span("b")
+    # The LM launch's probe is what it always was: no words for the lanes'
+    # busy iterations, which only a Quality launch while recording gets.
+    spec = Robot.from_urdf_file(asset_path("panda.urdf"), "panda_link0",
+                                "panda_hand_tcp", device="cpu").spec
+    plans = [lm_kernel.KernelPlan(spec, CFG.replace(
+        solution_mode="quality", max_restarts=r, seed_batch=s))
+        for r, s in ((256, 64), (32, 8))]
+    speed = lm_kernel.KernelPlan(spec, CFG)
     names = [f"optik.n{i}" for i in range(8)]
-    for name in names:              # warm every code path once
-        with telemetry.span(name):
-            telemetry.count(name)
+
+    def off_path():
+        for name in names:
+            with telemetry.span(name):
+                telemetry.count(name)
+        return [lm_kernel.lane_busy_words(p, 4096) for p in plans]
+
+    off_path()                      # warm every code path once
     tracemalloc.start()
     try:
         before = tracemalloc.take_snapshot()
         for _ in range(2000):
-            for name in names:
-                with telemetry.span(name):
-                    telemetry.count(name)
+            assert off_path() == [0, 0]
         after = tracemalloc.take_snapshot()
     finally:
         tracemalloc.stop()
     here = [d for d in after.compare_to(before, "filename")
             if d.traceback[0].filename in (telemetry.__file__,
-                                            contextlib.__file__)]
+                                            contextlib.__file__,
+                                            lm_kernel.__file__)]
     assert sum(d.size_diff for d in here) <= 0, here
     assert _empty(telemetry.export())
+    with telemetry.recording():
+        assert [lm_kernel.lane_busy_words(p, 4096) for p in plans] == [
+            2 * 4096, 4096]
+        assert lm_kernel.lane_busy_words(speed, 4096) == 0
+    assert lm_kernel.lane_busy_words(speed, 4096) == 0
 
 
 def test_span_tree_self_times_and_one_root_per_call(robot, batch):
@@ -221,25 +239,93 @@ def _hand_probe():
         restart_index=torch.zeros(b, s, dtype=torch.int32),
         succ_iters=torch.zeros(b, s, dtype=torch.int32),
         lane_iters=pose_iters.sum(dtype=torch.int64),
-        warp_trips=trips, warp_times=times)
+        warp_trips=trips, warp_times=times, pose_iters=pose_iters[:, None])
 
 
 def test_probe_reduction_matches_schedule_profile_and_exec_slots():
     lanes = _hand_probe()
     row = lm_kernel.probe_row(lanes)
     assert row.dtype == torch.int64
-    assert row.tolist() == [4 * 160, 30 + 41 + 9 + 35, 1_000, 7_500, 12_000]
-    ran, slots, span, tail = lm_kernel.probe_counts(row.tolist())
+    assert row.tolist() == [4 * 160, 30 + 41 + 9 + 35, 1_000, 7_500, 12_000,
+                            0, 0]
+    ran, slots, span, tail, wait, busy = lm_kernel.probe_counts(
+        row.tolist())
     assert ran == 4 * 160
     assert slots == 32 * (30 + 41 + 9 + 35)
     assert span == 12_000 - 1_000 and tail == 12_000 - 7_500
+    # One warp per pose: no pair waits; a Speed launch records no busy.
+    assert wait == 0 and busy == 0
     assert lm_kernel.exec_slots(lanes) == slots
     prof = lm_kernel.schedule_profile(lanes)
     assert prof["span_ms"] == span / 1e6 and prof["tail_ms"] == tail / 1e6
     assert prof["tail_share"] == tail / span
     assert prof["occupied_share"] == ran / slots
     assert prof["executed_slots_per_solve"] == slots / 6
+    assert prof["held_slots_per_solve"] == slots / 6
     assert prof["exit_ms"][-1] == span / 1e6
+    assert prof["pair_wait_share"] == 0 and prof["lane_busy_share"] is None
+
+
+def _pair_probe():
+    """A Quality launch of 2 pairs of warps over B = 3 poses of S = 64
+    lanes (two warps each): per pose and warp its iterations times S, and
+    its lanes' busy iterations."""
+    s = 64
+    iters = torch.tensor([[150, 190], [196, 120], [77, 77]],
+                         dtype=torch.int32)
+    busy = torch.tensor([[32 * 140, 32 * 180], [32 * 190, 32 * 101],
+                         [32 * 70, 32 * 77]], dtype=torch.int32)
+    times = torch.tensor([[1_000, 9_000, 20_000], [1_000, 9_000, 20_000],
+                          [1_100, 8_000, 19_000], [1_100, 8_000, 19_000]],
+                         dtype=torch.int64)
+    # Each warp ran the iterations of its poses: pair 0 poses 0 and 2,
+    # pair 1 pose 1.
+    trips = torch.tensor([150 + 77, 190 + 77, 196, 120], dtype=torch.int32)
+    b, a = 3, 7
+    return lm_kernel.LaneResult(
+        x=torch.zeros(b, s, a), f=torch.zeros(b, s),
+        success=torch.zeros(b, s, dtype=torch.bool),
+        restart_index=torch.zeros(b, s, dtype=torch.int32),
+        succ_iters=torch.zeros(b, s, dtype=torch.int32),
+        lane_iters=(iters.amax(dim=1) * s).sum(dtype=torch.int64),
+        warp_trips=trips, warp_times=times, pose_iters=iters * s,
+        lane_busy=busy)
+
+
+def test_pair_wait_and_lane_busy_from_a_probe_of_pairs(monkeypatch):
+    """The earlier warp of a pair idles 32 slots an iteration until the
+    later one is through; with those slots counted, the occupied share of
+    the held slots is at most 1 and the lanes' busy share below it."""
+    lanes = _pair_probe()
+    row = lm_kernel.probe_row(lanes)
+    ran, slots, span, tail, wait, busy = lm_kernel.probe_counts(
+        row.tolist())
+    assert ran == 64 * (190 + 196 + 77)
+    assert slots == 32 * (150 + 190 + 77 + 77 + 196 + 120)
+    assert wait == 32 * (40 + 76 + 0)
+    assert busy == int(lanes.lane_busy.sum())
+    # The pair's warps held 64 slots an iteration of the later warp.
+    assert slots + wait == 64 * (190 + 196 + 77)
+    assert lm_kernel.exec_slots(lanes) == slots + wait
+    assert ran / slots > 1           # over the warps' own trips alone
+    prof = lm_kernel.schedule_profile(lanes)
+    assert prof["occupied_share"] == ran / (slots + wait) == 1
+    assert prof["pair_wait_share"] == wait / (slots + wait)
+    assert prof["lane_busy_share"] == busy / (slots + wait)
+    assert prof["executed_slots_per_solve"] == slots / 3
+    assert prof["held_slots_per_solve"] == (slots + wait) / 3
+    assert 0 < prof["lane_busy_share"] < prof["occupied_share"]
+    # The card's counters sum the rows of every launch.
+    monkeypatch.setattr(telemetry, "card_clock",
+                        lambda lib, device: (0, 0))
+    cpu = torch.device("cpu")
+    with telemetry.recording():
+        for _ in range(2):
+            lm_kernel.probe_row(lanes, out=telemetry.launch_row(cpu, None))
+    c = telemetry.export()["counters"]
+    assert c["lm.pair_wait_slots"] == 2 * wait
+    assert c["lm.lane_busy_iters"] == 2 * busy
+    assert c["lm.slots"] == 2 * slots and c["lm.lane_iters"] == 2 * ran
 
 
 def test_probe_rows_sum_on_the_card_and_exits_take_the_host_clock(
@@ -262,6 +348,7 @@ def test_probe_rows_sum_on_the_card_and_exits_take_the_host_clock(
     assert c["lm.lane_iters"] == 5 * 640
     assert c["lm.slots"] == 5 * 32 * 115
     assert c["lm.span_ns"] == 5 * 11_000 and c["lm.tail_ns"] == 5 * 4_500
+    assert c["lm.pair_wait_slots"] == 0 and c["lm.lane_busy_iters"] == 0
     assert c["lm.launches"] == 0
     card = out["devices"]["cpu"]
     assert card["launches"] == 5 and card["rows_dropped"] == 3
