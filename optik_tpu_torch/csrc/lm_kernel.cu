@@ -47,6 +47,27 @@
 //     ballot under the group's mask, the cap's butterfly over Sp lanes, the
 //     pair exchange) and every per-lane value is set anew at a draw, so each
 //     lane's result is the lockstep one whatever the packing.
+//   * Quality with no success cap runs a restart queue instead: its
+//     restarts talk to nothing (no freeze, no ballot, no exchange), so the
+//     unit of work is one restart on one thread, not a pose on a group.
+//     Item q = b R + r of B R, pose-major; a thread whose attempt is over
+//     writes the attempt's row and takes the next item by its rank in its
+//     warp's ballot, from a chunk of kChunk items its warp claimed with one
+//     atomicAdd (near the queue's end, only as many as the warp's lanes
+//     need at once).  An attempt is a group lane's loop body from a
+//     reseed: the pose's target and caller's seed, the seed of restart r
+//     (lane b S + r's start point for r < S, table[r] after), lam, nu and
+//     the iteration count set anew; every restart's floating-point work is
+//     the group schedule's, in the same order.  A row (A + 4 words a
+//     restart, field-major over the B R items) holds x, f, the distance to
+//     the caller's seed of a success (inf otherwise), the success iteration
+//     and the attempt's iterations.  A second kernel, lm_solve_pick_kernel,
+//     writes each pose's S lane outputs from its rows as a group lane would
+//     (the restarts s, s + S, ... of slot s, the nearest success, the lower
+//     r on a tie), so a pose's answer never depends on which thread ran
+//     which restart.  So no thread waits for its pose's slowest restart,
+//     and the card drains only the last attempts.  A cap counts successes
+//     in lockstep order, so capped Quality keeps the pose groups.
 //   * The chain is compile-time.  The wrapper writes the robot's joint
 //     constants into optik_chain.h beside the library (they are part of the
 //     build key).  FK and the Jacobian columns run on scalars whose kind is
@@ -75,7 +96,9 @@
 //     number of times.
 //   * Schedule probe: lane 0 of each warp stores %globaltimer at its start,
 //     at its last successful draw and at its exit, and its loop trips; each
-//     group stores the iterations its pose ran, times S.  The Quality build
+//     group stores the iterations its pose ran, times S (on the restart
+//     queue the pick stores the iterations a pose's restarts ran, and each
+//     warp its restarts drawn and its draws that changed pose).  The Quality build
 //     also stores, where the wrapper asks for it (lane_busy), the
 //     iterations its lanes spent inside an attempt, summed over the group:
 //     a lane notes the iteration at which its restarts ran out, and the
@@ -219,6 +242,15 @@ __host__ __device__ constexpr int lane_words(int dof) {
 }
 #endif
 constexpr int kNumOpts = 19;
+// Items a warp claims from the restart queue at once, far from its end:
+// one atomicAdd a chunk instead of one a draw, and a chunk's items are
+// mostly one pose's restarts, so its lanes read one pose record.
+constexpr int kChunk = 32;
+
+// The restart queue reads a pose from one record of its (B, W) pose-major
+// array: the target's rotation (9, row-major) and translation (3), the
+// caller's seed (A), zero padding to W, a multiple of 4.
+__host__ __device__ constexpr int record_words(int dof) { return (12 + dof + 3) & ~3; }
 // A block is one pair of warps, the most threads one pose can take:
 // registers are granted per warp, so the smallest block wastes none.
 constexpr int kBlockThreads = 64;
@@ -1192,6 +1224,19 @@ struct RegisterLane {
 #pragma unroll
     for (int p = 0; p < A; ++p) x_out[p * n_lanes + l] = bx[p];
   }
+  __device__ __forceinline__ int dof() const { return A; }
+  __device__ __forceinline__ void store_row(const Vec& x, float* row, size_t stride) const {
+#pragma unroll
+    for (int p = 0; p < A; ++p) row[p * stride] = x[p];
+  }
+  __device__ __forceinline__ void start(Vec& x, const float* seed) const {
+#pragma unroll
+    for (int p = 0; p < A; ++p) x[p] = seed[p];
+  }
+  __device__ __forceinline__ void take_seed(SeedVec& q0, const float* seed) const {
+#pragma unroll
+    for (int p = 0; p < A; ++p) q0[p] = seed[p];
+  }
   __device__ __forceinline__ void normal(const Jac& jt, float jjt[6][6], float lam) const {
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
@@ -1336,6 +1381,19 @@ struct ScratchLane {
     const Strided b = bx();
     for (int p = 0; p < a; ++p) x_out[p * n_lanes + l] = b[p];
   }
+  __device__ __forceinline__ int dof() const { return a; }
+  __device__ __forceinline__ void store_row(const Vec&, float* row, size_t stride) const {
+    const Strided x = x_copy(cur);
+    for (int p = 0; p < a; ++p) row[p * stride] = x[p];
+  }
+  __device__ __forceinline__ void start(Vec&, const float* seed) const {
+    const Strided x = x_copy(cur);
+    for (int p = 0; p < a; ++p) x[p] = seed[p];
+  }
+  __device__ __forceinline__ void take_seed(SeedVec&, const float* seed) const {
+    const Strided q = q0();
+    for (int p = 0; p < a; ++p) q[p] = seed[p];
+  }
   // One pass over J: the 21 sums of J J^T side by side, each in p order.
   __device__ __forceinline__ void normal(const Jac&, float jjt[6][6], float lam) const {
     const Strided jt = j_copy(cur);
@@ -1433,14 +1491,38 @@ using KernelLane = RegisterLane<kDof, kQuality>;
 using KernelLane = ScratchLane<kQuality>;
 #endif
 
-// The loop: one thread per lane, thread groups drawing poses (see the head
-// of this file).
+// Weighting blocks M = R^T D R with R the lane's target rotation, each
+// entry summed as ((R_0i w_0) R_0j + (R_1i w_1) R_1j) + (R_2i w_2) R_2j.
+__device__ __forceinline__ void weight_blocks(const Opts& o, const float* tr, float* ml,
+                                              float* ma) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      ml[3 * i + j] = ((tr[i] * o.wl[0]) * tr[j] + (tr[3 + i] * o.wl[1]) * tr[3 + j])
+                      + (tr[6 + i] * o.wl[2]) * tr[6 + j];
+      ma[3 * i + j] = ((tr[i] * o.wa[0]) * tr[j] + (tr[3 + i] * o.wa[1]) * tr[3 + j])
+                      + (tr[6 + i] * o.wa[2]) * tr[6 + j];
+    }
+}
+
+// The loop: one thread per lane, thread groups drawing poses, or each lane
+// drawing restarts (see the head of this file).
+// The run-time chain's Quality build is held to 8 resident blocks (16
+// warps) an SM: the restart queue's bookkeeping would take it to 146
+// registers and 12 warps, which ran the 48-joint arm 4.5% slower than
+// 128 registers and 16 bytes of spill (PERF.md).
+#if OPTIK_RUNTIME_CHAIN && OPTIK_QUALITY
+#define OPTIK_LM_BOUNDS __launch_bounds__(kBlockThreads, 8)
+#else
+#define OPTIK_LM_BOUNDS __launch_bounds__(kBlockThreads)
+#endif
 template <class Lane, bool QUALITY, bool WEIGHTED, bool WIDE>
-__global__ void __launch_bounds__(kBlockThreads)
+__global__ void OPTIK_LM_BOUNDS
 lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, int s_lanes,
                 int s_pad, int total_restarts, int reseed, int freeze, int max_total_iters,
-                const float* __restrict__ seeds,   // (A, L), L = n_pose * s_lanes
-                const float* __restrict__ tgt,     // (12, B)
+                const float* __restrict__ seeds,   // (A, L), L = n_pose * s_lanes; queue (L, A)
+                const float* __restrict__ tgt,     // (12, B); queue (B, record_words(A))
                 const float* __restrict__ table,   // (R, A)
                 const float* __restrict__ qx0,     // (A, B), Quality with reseeding
                 float* __restrict__ x_out,         // (A, L)
@@ -1453,7 +1535,9 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
                 int* __restrict__ lane_busy,       // (B, warps of a group) or null, Quality
                 int* __restrict__ warp_trips,      // (launched warps,)
                 unsigned long long* __restrict__ times,  // (launched warps, 3)
-                float* __restrict__ scratch) {  // ScratchLane's words (run-time chain)
+                float* __restrict__ scratch,   // ScratchLane's words (run-time chain)
+                float* __restrict__ rows,      // (A + 4, B * R) or null: the restart queue
+                int* __restrict__ draw_counts) {  // (launched warps, 2), the restart queue
   const int lane = threadIdx.x & 31;
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const bool two_warps = s_pad == 64;
@@ -1466,8 +1550,12 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
   const unsigned freeze_mask = freeze ? gmask : 0u;
   const bool has_lane = seed < s_lanes;  // not a padding thread
   const int n_lanes = n_pose * s_lanes;
-  // Quality best-tracking runs only when lanes stride a restart budget.
-  const bool track_best = QUALITY && reseed;
+  // Quality with no success cap: every lane draws (pose, restart) items
+  // from the restart queue on its own, and writes each restart's row.
+  const bool queued = QUALITY && !WIDE && rows != nullptr;
+  const int n_items = n_pose * total_restarts;
+  // Quality best-tracking runs only when pose groups stride a restart budget.
+  const bool track_best = QUALITY && reseed && !queued;
   // Quality: the lanes' busy iterations, where the wrapper asks for them.
   const bool track_busy = QUALITY && lane_busy != nullptr;
   const bool use_l = WEIGHTED && !o.lin_id, use_a = WEIGHTED && !o.ang_id;
@@ -1486,6 +1574,7 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
   // Per-lane state; set anew at every draw.  The A-long vectors have the
   // Lane's types (see above).
   Lane vec(rt, scratch);
+  const int pose_words = record_words(vec.dof());  // the restart queue's pose records
   float tr[9], tt[3];
   float ml[WEIGHTED ? 9 : 1], ma[WEIGHTED ? 9 : 1];
   typename Lane::Vec x;
@@ -1517,98 +1606,182 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
   int draws = 0;   // the pair's draws so far (their parity picks the word)
   int it = 0;      // the group's iteration on its pose
   int trips = 0;   // the warp's loop trips
+  // The restart queue: (lane 0) the warp's restarts drawn and the draws
+  // that changed a lane's pose.
+  int n_draws = 0, n_switches = 0;
+  // The warp's chunk of claimed items not yet handed out: [chunk_next, chunk_end).
+  int chunk_next = 0, chunk_end = 0;
 
   for (;;) {
-    // A group whose pose is through writes it out and draws the next one.
-    bool fin;
-    if constexpr (WIDE) {
-      fin = pose >= 0 && (pair_done || it >= max_total_iters);
-    } else {
-      const unsigned halted = __ballot_sync(kFullMask, stopped);
-      fin = pose >= 0 && ((halted & gmask) == gmask || it >= max_total_iters);
-    }
-    const bool refill = fin || (pose < 0 && !dead);
-    if (__any_sync(kFullMask, refill)) {
-      if (fin) {
-        if (seed == half * 32) pose_iters[two_warps ? pose * 2 + half : pose] = it * s_lanes;
-        if constexpr (QUALITY) {
-          if (track_busy) {  // fin is the same for the whole group
-            const int busy = has_lane ? (busy_end >= 0 ? busy_end : it) : 0;
-            const int sum = (int)__reduce_add_sync(gmask, (unsigned)busy);
-            if (seed == half * 32) lane_busy[two_warps ? pose * 2 + half : pose] = sum;
+    // The restart queue's draw is compiled into the Quality builds alone.
+    bool groups = true;
+    if constexpr (QUALITY && !WIDE) {
+      if (queued) {
+        groups = false;
+        // A lane whose attempt is over writes its restart's row and takes
+        // the next item.
+        const bool over = stopped && !dead;
+        if (__any_sync(kFullMask, over)) {
+          if (over && pose >= 0) {
+            const size_t stride = (size_t)n_items;
+            const size_t q = (size_t)pose * total_restarts + cur_idx;
+            vec.store_row(x, rows + q, stride);
+            float* tail = rows + (size_t)vec.dof() * stride + q;
+            tail[0] = f;
+            tail[stride] = reseed && success ? sqrtf(vec.seed_distance2(x, q0)) : INFINITY;
+            tail[2 * stride] = __int_as_float(succ_it);
+            tail[3 * stride] = __int_as_float(it_lane);
           }
-        }
-        if (has_lane) {
-          if (track_best) {
-            vec.store_best(bx, x_out, n_lanes, l);
-            f_out[l] = bf;
-            succ_out[l] = isfinite(bd) ? 1 : 0;
-            idx_out[l] = bi;
+          // Each lane takes the next item by its rank in the warp's ballot:
+          // from the warp's chunk of items claimed earlier while it lasts,
+          // the rest from one atomicAdd by lane 0, broadcast by a shuffle.
+          // Far from the queue's end a warp claims kChunk items at a time;
+          // near it, only what its lanes need now.
+          const unsigned want = __ballot_sync(kFullMask, over);
+          const int need = __popc(want);
+          const int rank = __popc(want & ((1u << lane) - 1u));
+          const int avail = chunk_end - chunk_next;
+          int q = chunk_next + rank;
+          if (need > avail) {
+            const int ask = chunk_end < n_items - 2 * (int)(gridDim.x * blockDim.x) ? kChunk
+                                                                                   : need - avail;
+            int base = 0;
+            if (lane == 0) base = atomicAdd(queue, ask);
+            base = __shfl_sync(kFullMask, base, 0);
+            if (rank >= avail) q = base + rank - avail;
+            chunk_next = base + need - avail;
+            chunk_end = base + ask;
           } else {
-            vec.store(x, x_out, n_lanes, l);
-            f_out[l] = f;
-            succ_out[l] = success ? 1 : 0;
-            idx_out[l] = reseed ? cur_idx : seed;
+            chunk_next += need;
           }
-          sit_out[l] = succ_it;
+          const int prev = pose;
+          bool late = false;
+          if (over) {
+            dead = q >= n_items;
+            late = !dead && q >= n_items - (int)(gridDim.x * blockDim.x);
+            pose = dead ? -1 : q / total_restarts;
+            cur_idx = dead ? 0 : q - pose * total_restarts;
+            // The pose's record (target, caller's seed) and the restart's
+            // seed: restarts below S start from their lane's seed, the rest
+            // from the table, as a pose group's lanes do.  The loads are
+            // unconditional (a dead lane reads pose 0 and never runs), so
+            // their wait falls where the step first reads them.  e and J
+            // stay as they were: a pending iteration reads neither into its
+            // result.
+            const int b = dead ? 0 : pose;
+            const float* rec = tgt + (size_t)b * pose_words;
+#pragma unroll
+            for (int i = 0; i < 9; ++i) tr[i] = rec[i];
+#pragma unroll
+            for (int i = 0; i < 3; ++i) tt[i] = rec[9 + i];
+            if constexpr (WEIGHTED) weight_blocks(o, tr, ml, ma);
+            const int r = dead ? 0 : cur_idx;
+            vec.start(x, r < s_lanes ? seeds + ((size_t)b * s_lanes + r) * vec.dof()
+                                     : table + (size_t)r * vec.dof());
+            if (reseed) vec.take_seed(q0, rec + 12);
+            f = INFINITY;
+            lam = o.lam_init;
+            nu = 2.0f;
+            stopped = dead;
+            success = false;
+            pending = true;
+            it_lane = 0;
+            succ_it = 0;
+          }
+          const unsigned took = __ballot_sync(kFullMask, over && !dead);
+          const unsigned moved =
+              __ballot_sync(kFullMask, over && !dead && prev >= 0 && prev != pose);
+          // The last draw's time: only the last grid's worth of items can
+          // hold it.
+          const unsigned stamp = __ballot_sync(kFullMask, late);
+          if (lane == 0) {
+            n_draws += __popc(took);
+            n_switches += __popc(moved);
+            if (stamp != 0u) times[warp * 3 + 1] = global_ns();
+          }
         }
       }
-      __syncwarp();
-      int next;
-      if (two_warps) {  // warp-uniform: the whole warp is one group's half
-        next = pair_draw(drawn, draws & 1, queue);
-        ++draws;
+    }
+    if (groups) {
+      // A group whose pose is through writes it out and draws the next one.
+      bool fin;
+      if constexpr (WIDE) {
+        fin = pose >= 0 && (pair_done || it >= max_total_iters);
       } else {
-        next = (refill && seed == 0) ? atomicAdd(queue, 1) : 0;
-        next = __shfl_sync(kFullMask, next, leader);
+        const unsigned halted = __ballot_sync(kFullMask, stopped);
+        fin = pose >= 0 && ((halted & gmask) == gmask || it >= max_total_iters);
       }
-      if (refill) {
-        dead = next >= n_pose;
-        pose = dead ? -1 : next;
-        const bool live = !dead && has_lane;
-        l = pose * s_lanes + seed;
-#pragma unroll
-        for (int i = 0; i < 9; ++i)
-          tr[i] = live ? tgt[i * n_pose + pose] : (i % 4 == 0 ? 1.0f : 0.0f);
-#pragma unroll
-        for (int i = 0; i < 3; ++i) tt[i] = live ? tgt[(9 + i) * n_pose + pose] : 0.0f;
-        // Weighting blocks M = R^T D R with R the lane's target rotation, each
-        // entry summed as ((R_0i w_0) R_0j + (R_1i w_1) R_1j) + (R_2i w_2) R_2j.
-        if constexpr (WEIGHTED) {
-#pragma unroll
-          for (int i = 0; i < 3; ++i)
-#pragma unroll
-            for (int j = 0; j < 3; ++j) {
-              ml[3 * i + j] = ((tr[i] * o.wl[0]) * tr[j] + (tr[3 + i] * o.wl[1]) * tr[3 + j])
-                              + (tr[6 + i] * o.wl[2]) * tr[6 + j];
-              ma[3 * i + j] = ((tr[i] * o.wa[0]) * tr[j] + (tr[3 + i] * o.wa[1]) * tr[3 + j])
-                              + (tr[6 + i] * o.wa[2]) * tr[6 + j];
+      const bool refill = fin || (pose < 0 && !dead);
+      if (__any_sync(kFullMask, refill)) {
+        if (fin) {
+          if (seed == half * 32) pose_iters[two_warps ? pose * 2 + half : pose] = it * s_lanes;
+          if constexpr (QUALITY) {
+            if (track_busy) {  // fin is the same for the whole group
+              const int busy = has_lane ? (busy_end >= 0 ? busy_end : it) : 0;
+              const int sum = (int)__reduce_add_sync(gmask, (unsigned)busy);
+              if (seed == half * 32) lane_busy[two_warps ? pose * 2 + half : pose] = sum;
             }
+          }
+          if (has_lane) {
+            if (track_best) {
+              vec.store_best(bx, x_out, n_lanes, l);
+              f_out[l] = bf;
+              succ_out[l] = isfinite(bd) ? 1 : 0;
+              idx_out[l] = bi;
+            } else {
+              vec.store(x, x_out, n_lanes, l);
+              f_out[l] = f;
+              succ_out[l] = success ? 1 : 0;
+              idx_out[l] = reseed ? cur_idx : seed;
+            }
+            sit_out[l] = succ_it;
+          }
         }
-        vec.load(x, e, jt, seeds, n_lanes, l, live);
-        f = INFINITY;
-        lam = o.lam_init;
-        nu = 2.0f;
-        stopped = !live;
-        success = false;
-        pending = true;
-        cur_idx = reseed ? seed : 0;
-        it_lane = 0;
-        succ_it = 0;
-        if constexpr (QUALITY) {
-          vec.load_seed(q0, bx, qx0, n_pose, pose, track_best && live);
-          bd = INFINITY;
-          bf = INFINITY;
-          bi = 0;
-          succ_cnt = 0;
-          busy_end = -1;
+        __syncwarp();
+        int next;
+        if (two_warps) {  // warp-uniform: the whole warp is one group's half
+          next = pair_draw(drawn, draws & 1, queue);
+          ++draws;
+        } else {
+          next = (refill && seed == 0) ? atomicAdd(queue, 1) : 0;
+          next = __shfl_sync(kFullMask, next, leader);
         }
-        pair_done = false;
-        it = 0;
+        if (refill) {
+          dead = next >= n_pose;
+          pose = dead ? -1 : next;
+          const bool live = !dead && has_lane;
+          l = pose * s_lanes + seed;
+#pragma unroll
+          for (int i = 0; i < 9; ++i)
+            tr[i] = live ? tgt[i * n_pose + pose] : (i % 4 == 0 ? 1.0f : 0.0f);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) tt[i] = live ? tgt[(9 + i) * n_pose + pose] : 0.0f;
+          if constexpr (WEIGHTED) weight_blocks(o, tr, ml, ma);
+          vec.load(x, e, jt, seeds, n_lanes, l, live);
+          f = INFINITY;
+          lam = o.lam_init;
+          nu = 2.0f;
+          stopped = !live;
+          success = false;
+          pending = true;
+          cur_idx = reseed ? seed : 0;
+          it_lane = 0;
+          succ_it = 0;
+          if constexpr (QUALITY) {
+            vec.load_seed(q0, bx, qx0, n_pose, pose, track_best && live);
+            bd = INFINITY;
+            bf = INFINITY;
+            bi = 0;
+            succ_cnt = 0;
+            busy_end = -1;
+          }
+          pair_done = false;
+          it = 0;
+        }
+        if (__any_sync(kFullMask, refill && !dead) && lane == 0)
+          times[warp * 3 + 1] = global_ns();
+        __syncwarp();
       }
-      if (__any_sync(kFullMask, refill && !dead) && lane == 0)
-        times[warp * 3 + 1] = global_ns();
-      __syncwarp();
     }
     if (__all_sync(kFullMask, dead)) break;
 
@@ -1623,7 +1796,7 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
     // the pose's first iteration, or the next stride seed.
     typename Lane::Vec xn;
     typename Lane::Step step;
-    vec.step(x, jt, xn, step, rt, z, pending, reseed && it != 0, table, cur_idx);
+    vec.step(x, jt, xn, step, rt, z, pending, !queued && reseed && it != 0, table, cur_idx);
 
     // ONE fused evaluation: trial cost + the next step's Jacobian.
     float e_new[6];
@@ -1703,7 +1876,7 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
     }
 
     bool pending_next = false;
-    if (reseed) {
+    if (reseed && !queued) {
       const int next_idx = cur_idx + s_lanes;
       const bool can_retry = next_idx < total_restarts;
       if constexpr (QUALITY) {
@@ -1776,8 +1949,68 @@ lm_solve_kernel(const __grid_constant__ Runtime rt, const Opts o, int n_pose, in
   if (lane == 0) {
     warp_trips[warp] = trips;
     times[warp * 3 + 2] = global_ns();
+    if (queued) {
+      draw_counts[2 * warp] = n_draws;
+      draw_counts[2 * warp + 1] = n_switches;
+    }
   }
 }
+
+#if OPTIK_QUALITY
+// The restart queue's second kernel: each pose's lane outputs from its
+// restarts' rows, one warp a pose.  Slot s of pose b takes the restarts
+// r = s, s + S, ... that a pose group's lane s runs: x, f and the restart
+// index of the success nearest the caller's seed, the lower r on a tie (the
+// lane's strict d < bd in restart order), success if there is one, the
+// iteration of the lowest successful r's success, and where none succeeded
+// what that lane writes then (x 0, f inf, index 0).  Without reseeding a
+// slot's one restart is written as it ended.  The rows' iterations summed
+// over the pose go to pose_iters: on the queue they are also the pose's
+// lanes' busy iterations.
+constexpr int kPickThreads = 256;
+
+__global__ void __launch_bounds__(kPickThreads)
+lm_solve_pick_kernel(const float* __restrict__ rows, int dof, int n_pose, int s_lanes,
+                     int total_restarts, int reseed, float* __restrict__ x_out,
+                     float* __restrict__ f_out, int8_t* __restrict__ succ_out,
+                     int* __restrict__ idx_out, int* __restrict__ sit_out,
+                     int* __restrict__ pose_iters) {
+  const long long pose = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (pose >= n_pose) return;  // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const size_t stride = (size_t)n_pose * total_restarts;
+  const size_t first = (size_t)pose * total_restarts;
+  const float* f_row = rows + (size_t)dof * stride;
+  const float* d_row = f_row + stride;
+  const int* sit_row = reinterpret_cast<const int*>(d_row + stride);
+  const int* len_row = sit_row + stride;
+  const int n_lanes = n_pose * s_lanes;
+  int iters = 0;
+  for (int s = lane; s < s_lanes; s += 32) {
+    int best = -1, sit = 0;
+    float bd = INFINITY;
+    for (int r = s; r < total_restarts; r += s_lanes) {
+      iters += len_row[first + r];
+      if (sit == 0) sit = sit_row[first + r];
+      const float d = d_row[first + r];
+      if (d < bd) {
+        bd = d;
+        best = r;
+      }
+    }
+    const int pick = reseed ? best : s;
+    const int l = (int)pose * s_lanes + s;
+    for (int p = 0; p < dof; ++p)
+      x_out[p * n_lanes + l] = pick >= 0 ? rows[p * stride + first + pick] : 0.0f;
+    f_out[l] = pick >= 0 ? f_row[first + pick] : INFINITY;
+    succ_out[l] = (reseed ? best >= 0 : sit > 0) ? 1 : 0;
+    idx_out[l] = pick >= 0 ? pick : 0;
+    sit_out[l] = sit;
+  }
+  iters = (int)__reduce_add_sync(kFullMask, (unsigned)iters);
+  if (lane == 0) pose_iters[pose] = iters;
+}
+#endif
 
 // Resident blocks of this library's kernel on the current device (blocks
 // per SM in *per_sm), queried once; 0 after a failed query.
@@ -1803,7 +2036,8 @@ bool pad_ok(int s_pad) {
 }
 
 // Blocks a launch over n_pose poses uses: the resident ones, or fewer when
-// fewer hold every pose at once.
+// fewer hold every pose at once.  The restart queue's launch over n items
+// uses grid_blocks(n, 1): a thread an item.
 int grid_blocks(int n_pose, int s_pad) {
   const long long per_block = s_pad == 64 ? kBlockThreads / 64 : kBlockThreads / s_pad;
   const long long want = (n_pose + per_block - 1) / per_block;
@@ -1816,6 +2050,8 @@ int grid_blocks(int n_pose, int s_pad) {
 extern "C" {
 
 int optik_lm_block_threads() { return kBlockThreads; }
+// The restart queue's pose record, in floats, for a dof-joint chain.
+int optik_lm_record_words(int dof) { return record_words(dof); }
 // The host chain array's length: folded 13 + 2 A; run-time chain its head,
 // after which come optik_lm_joint_floats() per joint and the limits.
 int optik_lm_runtime_floats() { return kRuntimeFloats; }
@@ -1897,6 +2133,19 @@ const char* optik_lm_error_string(int code) {
 // pose's lanes ran before their restarts ran out or the pose ended, summed
 // over the lanes of each warp), and warp_trips and times (3 per warp) for
 // the optik_lm_grid(n_pose, s_pad) * block / 32 warps it launches.
+//
+// Quality with no success cap runs the restart queue instead, and then
+// needs `rows` (rows_words floats, at least (A + 4) * n_pose *
+// total_restarts) and `draw_counts` (2 ints a warp), null otherwise; the
+// grid is optik_lm_grid(n_pose * total_restarts, 1), and the scratch
+// optik_lm_scratch_words(n_pose * total_restarts, 1, A).  There `seeds` is
+// (L, A), lane-major, `tgt` the (B, W) pose records (record_words: the
+// target's rotation, row-major, and translation, the caller's seed, zeros;
+// W = optik_lm_record_words(A)) and `qx0` is not read.  A second kernel
+// picks the lane outputs from the rows; pose_iters holds one entry a pose,
+// the iterations its restarts ran, lane_busy is not written; draw_counts
+// per warp the restarts it drew and the draws whose pose differs from its
+// lane's last.
 int optik_lm_solve(const float* chain, int chain_len, const float* opts, int n_opts,
                    int n_pose, int s_lanes, int s_pad, int total_restarts, int reseed,
                    int freeze, const float* seeds, const float* tgt, const float* table,
@@ -1904,7 +2153,8 @@ int optik_lm_solve(const float* chain, int chain_len, const float* opts, int n_o
                    int* idx_out, int* sit_out, int* queue, int* pose_iters,
                    int* lane_busy, int* warp_trips, unsigned long long* times,
                    const float* dev_chain,
-                   float* scratch, long long scratch_words, void* stream) {
+                   float* scratch, long long scratch_words, float* rows,
+                   long long rows_words, int* draw_counts, void* stream) {
 #if !OPTIK_RUNTIME_CHAIN
   const int dof = kDof;
   if (chain_len != kRuntimeFloats || (chain[12] > 0.5f) != kHasTip) return -1;
@@ -1940,10 +2190,15 @@ int optik_lm_solve(const float* chain, int chain_len, const float* opts, int n_o
   o.cap = (int)opts[18];
   // What this instantiation cannot run.
   if (!kQuality && o.cap > 0) return -1;
-  if (kQuality && (freeze || (reseed && qx0 == nullptr))) return -1;
+  const bool queued = kQuality && o.cap == 0;
+  if (kQuality && (freeze || (reseed && !queued && qx0 == nullptr))) return -1;
   if (!kWeighted && !(o.lin_id && o.ang_id)) return -1;
   const bool crosses = s_pad == 64 && (kQuality ? o.cap > 0 : freeze != 0);
   if (crosses != kWide) return -1;
+  if (queued != (rows != nullptr) || queued != (draw_counts != nullptr)
+      || (queued && !reseed && total_restarts != s_lanes))
+    return -1;
+  const long long n_items = (long long)n_pose * total_restarts;
   const int rounds = reseed ? (total_restarts + s_lanes - 1) / s_lanes : 1;
   const int max_total_iters = (o.max_iters + 1) * rounds;
   Runtime rt;
@@ -1961,7 +2216,9 @@ int optik_lm_solve(const float* chain, int chain_len, const float* opts, int n_o
   rt.lower = rt.joints + kJointFloats * dof;
   rt.upper = rt.lower + dof;
 #endif
-  const int blocks = grid_blocks(n_pose, s_pad);
+  if (queued && (2 * n_items + kBlockThreads > 0x7fffffffLL || rows_words < (dof + 4) * n_items))
+    return -1;
+  const int blocks = queued ? grid_blocks((int)n_items, 1) : grid_blocks(n_pose, s_pad);
   if (blocks < 1) return (int)cudaErrorUnknown;
 #if OPTIK_RUNTIME_CHAIN
   // The scratch holds every thread's words, addressed in 32 bits.
@@ -1974,7 +2231,17 @@ int optik_lm_solve(const float* chain, int chain_len, const float* opts, int n_o
   lm_solve_kernel<KernelLane, kQuality, kWeighted, kWide><<<blocks, kBlockThreads, 0, st>>>(
       rt, o, n_pose, s_lanes, s_pad, total_restarts, reseed, freeze, max_total_iters, seeds,
       tgt, table, qx0, x_out, f_out, succ_out, idx_out, sit_out, queue, pose_iters,
-      lane_busy, warp_trips, times, scratch);
+      lane_busy, warp_trips, times, scratch, rows, draw_counts);
+#if OPTIK_QUALITY
+  if (queued) {
+    const cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return (int)launched;
+    const long long pick_blocks = (32 * (long long)n_pose + kPickThreads - 1) / kPickThreads;
+    lm_solve_pick_kernel<<<(unsigned)pick_blocks, kPickThreads, 0, st>>>(
+        rows, dof, n_pose, s_lanes, total_restarts, reseed, x_out, f_out, succ_out, idx_out,
+        sit_out, pose_iters);
+  }
+#endif
   return (int)cudaGetLastError();
 }
 

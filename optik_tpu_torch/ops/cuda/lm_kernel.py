@@ -3,10 +3,11 @@
 The counterpart of ``optik_tpu/ops/pallas/lm_kernel.py:build_kernel_solver``.
 The kernel (``optik_tpu_torch/csrc/lm_kernel.cu``) runs the whole lockstep
 projected-LM solve with one thread per lane, thread groups drawing poses
-from a work queue.  It takes the chain in one of two forms.  Up to
-``MAX_DOF`` joints the chain is folded into the code: this module writes
-its constants into a header (:func:`chain_header`) and builds a library per
-robot.  Wider chains take the run-time-chain form: the chain is an array
+from a work queue; uncapped Quality instead runs a restart queue, each
+thread drawing one (pose, restart) at a time (:func:`queued`).  It takes
+the chain in one of two forms.  Up to ``MAX_DOF`` joints the chain is
+folded into the code: this module writes its constants into a header
+(:func:`chain_header`) and builds a library per robot.  Wider chains take the run-time-chain form: the chain is an array
 (:func:`pack_runtime_chain`) and the per-lane vectors live in a scratch
 buffer this module allocates, so one library per variant serves every
 chain.  The module builds the kernel with ``nvcc`` at first use, binds its
@@ -84,8 +85,9 @@ class LaneResult(NamedTuple):
     restart_index: torch.Tensor  # (B, S) int32, local to the call (0..R-1)
     succ_iters: torch.Tensor     # (B, S) int32
     # 0-d int64.  From the kernel: the sum over poses of the iterations the
-    # pose's group ran, times S.  From the plain version: the lockstep
-    # loop's count times B * S.
+    # pose's group ran, times S (on the restart queue, the iterations the
+    # restarts ran).  From the plain version: the lockstep loop's count
+    # times B * S.
     lane_iters: torch.Tensor
     # (B, S) int32 iterations each lane ran before it stopped; only from
     # solve_plain(track_active=True).
@@ -100,9 +102,15 @@ class LaneResult(NamedTuple):
     # pose on a pair of warps, (B, 2) int32): the iterations the warp ran on
     # the pose times S, and, from the Quality build while telemetry
     # records, the iterations the warp's lanes spent inside an attempt,
-    # summed (None otherwise).
+    # summed (None otherwise).  From the restart queue (Quality, no cap)
+    # both are the one (B, 1) count of the iterations the pose's restarts
+    # ran (lane_busy only while telemetry records).
     pose_iters: Optional[torch.Tensor] = None
     lane_busy: Optional[torch.Tensor] = None
+    # Only from the restart queue, per launched warp ((warps, 2) int32): the
+    # restarts it drew, and the draws whose pose differs from the lane's
+    # previous one (None from the pose groups).
+    draws: Optional[torch.Tensor] = None
 
 
 def chain_header(consts) -> str:
@@ -191,9 +199,11 @@ def _load_library(header: Optional[str], quality: bool, weighted: bool,
         headers={} if header is None else {CHAIN_HEADER: header})
     vp, ci = ctypes.c_void_p, ctypes.c_int
     # chain, chain_len, opts; n_opts .. freeze; seeds .. times, dev_chain,
-    # scratch; scratch_words; stream.
+    # scratch; scratch_words;
+    # rows, rows_words, draw_counts; stream.
     lib.optik_lm_solve.argtypes = ([vp, ci, vp] + [ci] * 7 + [vp] * 16
-                                   + [ctypes.c_longlong, vp])
+                                   + [ctypes.c_longlong, vp,
+                                      ctypes.c_longlong, vp, vp])
     lib.optik_lm_solve.restype = ci
     lib.optik_lm_error_string.argtypes = [ci]
     lib.optik_lm_error_string.restype = ctypes.c_char_p
@@ -203,6 +213,8 @@ def _load_library(header: Optional[str], quality: bool, weighted: bool,
     lib.optik_lm_scratch_words.restype = ctypes.c_longlong
     lib.optik_lm_globaltimer.argtypes = [vp, vp]
     lib.optik_lm_globaltimer.restype = ci
+    lib.optik_lm_record_words.argtypes = [ci]
+    lib.optik_lm_record_words.restype = ci
     for name in ("optik_lm_block_threads", "optik_lm_runtime_floats",
                  "optik_lm_num_opts", "optik_lm_variant",
                  "optik_lm_blocks_per_sm", "optik_lm_joint_floats"):
@@ -218,6 +230,7 @@ def _load_library(header: Optional[str], quality: bool, weighted: bool,
         want |= dof | int("kHasTip = true" in header) << 11
     if ((lib.optik_lm_runtime_floats(), lib.optik_lm_joint_floats())
             != layout or lib.optik_lm_num_opts() != _NUM_OPTS
+            or lib.optik_lm_record_words(7) != record_words(7)
             or lib.optik_lm_variant() != want):
         raise RuntimeError(f"{info.path} does not match this wrapper's "
                            "layout or the requested instantiation")
@@ -573,12 +586,37 @@ def pack_targets(tgt_r: torch.Tensor, tgt_t: torch.Tensor) -> torch.Tensor:
     return torch.cat([tgt_r.reshape(b, 9).T, tgt_t.T], dim=0).contiguous()
 
 
+def record_words(a: int) -> int:
+    """The restart queue's pose record in floats (``csrc/lm_kernel.cu``:
+    record_words): 12 + A rounded up to a multiple of 4."""
+    return (12 + a + 3) // 4 * 4
+
+
+def pack_records(tgt_r: torch.Tensor, tgt_t: torch.Tensor,
+                 x0: torch.Tensor) -> torch.Tensor:
+    """(B,3,3), (B,3), (B,A) -> the restart queue's (B, W) pose records:
+    the target's rotation (row-major) and translation, the caller's seed,
+    zeros to :func:`record_words`, one row a pose."""
+    b, a = x0.shape
+    pad = x0.new_zeros(b, record_words(a) - 12 - a)
+    return torch.cat([tgt_r.reshape(b, 9), tgt_t, x0, pad], dim=1)
+
+
+def queued(plan: KernelPlan) -> bool:
+    """Whether the plan's launches run the restart queue: Quality with no
+    success cap, whose restarts are independent, so each lane draws
+    (pose, restart) items on its own (``csrc/lm_kernel.cu``).  A cap
+    counts successes in lockstep order, so capped Quality and Speed keep
+    the pose groups."""
+    return plan.quality and plan.cap == 0
+
+
 def lane_busy_words(plan: KernelPlan, b: int) -> int:
     """The schedule probe's words for the lanes' busy iterations of a
     launch over ``b`` poses: one per pose and warp of its group from the
-    Quality build while telemetry records, else 0 (off, the probe is
-    what it always was)."""
-    if not (plan.quality and telemetry.enabled()):
+    Quality build while telemetry records, else 0 (off, the probe is what
+    it always was; on the restart queue they are ``pose_iters``)."""
+    if not (plan.quality and telemetry.enabled()) or queued(plan):
         return 0
     return b * (2 if plan.s_pad == 64 else 1)
 
@@ -592,8 +630,11 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
     ``seeds`` is (A, L) with lane l = pose * S + s, ``tgt`` (12, B),
     ``table`` (R, A) (read only when ``reseed``), ``qx0`` (A, B) the
     caller's seeds (read only in Quality mode with ``reseed``); all float32
-    CUDA tensors.  ``freeze`` turns the Speed-mode group stop on.  Launches
-    on the current stream and does not synchronise.
+    CUDA tensors.  On the restart queue (:func:`queued`) ``seeds`` is
+    (L, A), ``tgt`` the (B, W) pose records of :func:`pack_records`, which
+    hold the caller's seeds, and ``qx0`` is not taken.  ``freeze`` turns
+    the Speed-mode group stop on.  Launches on the current stream and does
+    not synchronise.
 
     ``lane_iters`` is the work the poses took: the sum over poses of the
     iterations the pose's group ran (until its last lane stopped), times S.
@@ -605,26 +646,36 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
     records, the Quality build also writes ``lane_busy`` (in the probe's
     one allocation, which is that much longer), and :func:`probe_row`
     reduces the probe on the card into the telemetry's counters.
+
+    Uncapped Quality (:func:`queued`) runs the restart queue: one thread
+    an item of B * R (pose, restart) items, each restart's row in a
+    (A + 4, B * R) float32 buffer of this launch, and a second kernel that
+    picks the same lane outputs from the rows.  There ``lane_iters`` is
+    the iterations the restarts ran, and ``draws`` comes back too.
     """
     global LAUNCHES
     a, s = plan.a, plan.s
+    on_queue = queued(plan)
     tensors = {"seeds": seeds, "tgt": tgt}
     if reseed:
         if table is None:
             raise ValueError("reseeding needs the seed table")
         tensors["table"] = table
-        if plan.quality:
+        if plan.quality and not on_queue:
             if qx0 is None:
                 raise ValueError("Quality mode with reseeding needs qx0")
             tensors["qx0"] = qx0
     device = _check_cuda_f32(**tensors)
-    b = tgt.shape[1]
+    b = tgt.shape[0] if on_queue else tgt.shape[1]
     n_lanes = b * s
-    if seeds.shape != (a, n_lanes) or tgt.shape != (12, b):
-        raise ValueError(f"expected seeds ({a}, {n_lanes}) and tgt (12, {b}); "
+    want = ((n_lanes, a), (b, record_words(a))) if on_queue \
+        else ((a, n_lanes), (12, b))
+    if (seeds.shape, tgt.shape) != want:
+        raise ValueError(f"expected seeds {want[0]} and tgt {want[1]}; "
                          f"got {tuple(seeds.shape)}, {tuple(tgt.shape)}")
     if reseed and (table.shape != (plan.r_total, a)
-                   or (plan.quality and qx0.shape != (a, b))):
+                   or (plan.quality and not on_queue
+                       and qx0.shape != (a, b))):
         raise ValueError("seed table must be (R, A) and qx0 (A, B)")
     for name, t in tensors.items():
         if not t.is_contiguous():
@@ -632,13 +683,16 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
     if plan.quality and freeze:
         raise ValueError("the group freeze is Speed mode's")
     lib, _ = plan.library(freeze, fmad)
-    halves = 2 if plan.s_pad == 64 else 1
+    r_launch = plan.r_total if reseed else s
+    halves = 2 if plan.s_pad == 64 and not on_queue else 1
     busy_words = lane_busy_words(plan, b)
-    n_warps = lib.optik_lm_grid(b, plan.s_pad) \
+    # The grid: a pose group a pose, or a thread a restart-queue item.
+    units, pad = (b * r_launch, 1) if on_queue else (b, plan.s_pad)
+    n_warps = lib.optik_lm_grid(units, pad) \
         * lib.optik_lm_block_threads() // 32
     if n_warps < 1:
         raise RuntimeError("the occupancy query of the LM kernel failed")
-    words = lib.optik_lm_scratch_words(b, plan.s_pad, a)
+    words = lib.optik_lm_scratch_words(units, pad, a)
     if not 0 <= words <= _MAX_SCRATCH_WORDS:
         raise ValueError(
             f"the run-time-chain kernel's scratch for {a} joints is "
@@ -659,19 +713,27 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
         succ = empty(n_lanes, torch.int8)
         ridx = empty(n_lanes, torch.int32)
         sit = empty(n_lanes, torch.int32)
+        # The restart queue's rows (torch raises where the card has no room
+        # for them).
+        rows = empty((a + 4) * b * r_launch, torch.float32) if on_queue \
+            else None
         # The queue's counter and the schedule probe, one allocation: times
-        # (int64, so first), trips, pose iterations, lanes' busy iterations
-        # (Quality, telemetry on), counter.
-        probe = empty(7 * n_warps + b * halves + busy_words + 1, torch.int32)
+        # (int64, so first), trips, the restart queue's draws, pose
+        # iterations, lanes' busy iterations (Quality, telemetry on),
+        # counter.
+        n_draw = 2 * n_warps if on_queue else 0
+        probe = empty(7 * n_warps + n_draw + b * halves + busy_words + 1,
+                      torch.int32)
         times = probe[:6 * n_warps].view(torch.int64).view(n_warps, 3)
         trips = probe[6 * n_warps:7 * n_warps]
-        pose_iters = probe[7 * n_warps:7 * n_warps + b * halves].view(b,
-                                                                    halves)
-        busy = probe[7 * n_warps + b * halves:-1].view(b, halves) \
+        at = 7 * n_warps + n_draw
+        draws = probe[7 * n_warps:at].view(n_warps, 2) if on_queue else None
+        pose_iters = probe[at:at + b * halves].view(b, halves)
+        busy = probe[at + b * halves:-1].view(b, halves) \
             if busy_words else None
         queue = probe[-1:]
         stream = torch.cuda.current_stream(device).cuda_stream
-        use_qx0 = reseed and plan.quality
+        use_qx0 = reseed and plan.quality and not on_queue
         rc = lib.optik_lm_solve(
             plan.chain.ctypes.data, plan.chain.size,
             plan.opt_array.ctypes.data, plan.opt_array.size, b, s,
@@ -684,7 +746,10 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
             None if busy is None else busy.data_ptr(),
             trips.data_ptr(), times.data_ptr(),
             None if dev_chain is None else dev_chain.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), words, stream)
+            None if scratch is None else scratch.data_ptr(), words,
+            None if rows is None else rows.data_ptr(),
+            0 if rows is None else rows.numel(),
+            None if draws is None else draws.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(
                 "optik_lm_solve failed: "
@@ -694,16 +759,74 @@ def launch_lanes(plan: KernelPlan, seeds: torch.Tensor, tgt: torch.Tensor,
         # A pose across two warps ran until the later of the two was through.
         group_iters = pose_iters.amax(dim=1) if halves == 2 else pose_iters
         lane_iters = group_iters.sum(dtype=torch.int64)
+        if on_queue and telemetry.enabled():
+            busy = pose_iters
     lanes = LaneResult(
         x=x_out.reshape(a, b, s).permute(1, 2, 0),
         f=f_out.reshape(b, s), success=succ.reshape(b, s).bool(),
         restart_index=ridx.reshape(b, s), succ_iters=sit.reshape(b, s),
         lane_iters=lane_iters, warp_trips=trips, warp_times=times,
-        pose_iters=pose_iters, lane_busy=busy)
+        pose_iters=pose_iters, lane_busy=busy, draws=draws)
     row = telemetry.launch_row(device, lib)
     if row is not None:
         probe_row(lanes, out=row)
     return lanes
+
+
+def pick_plain(rows: torch.Tensor, a: int, b: int, s: int, r: int,
+               reseed: bool) -> LaneResult:
+    """The restart queue's pick (``csrc/lm_kernel.cu``:
+    ``lm_solve_pick_kernel``) as plain torch, on any device.
+
+    ``rows`` is the (A + 4, B * R) float32 buffer the queue writes, item
+    q = pose * R + r: x (A), f, the distance to the caller's seed of a
+    success (inf otherwise), and as int32 bits the success iteration (0:
+    none) and the iterations the attempt ran.  Slot s of a pose takes the
+    restarts r = s, s + S, ..., as a pose group's lane s runs them: with
+    reseeding, x, f and the index of the nearest success (NaN never wins, a
+    tie goes to the lower r), success where there is one, x 0, f inf and
+    index 0 where there is none; without, its one restart as it ended.
+    ``succ_iters`` is the lowest successful r's success iteration.
+    ``lane_iters`` is the rows' iterations summed, ``pose_iters`` (B, 1) per
+    pose."""
+    rounds = -(-r // s)
+    pad = rounds * s - r
+
+    def per_slot(t, fill):
+        """(B, R) -> (B, S, rounds): restart s + k S at [:, s, k]."""
+        t = torch.cat([t, t.new_full((b, pad), fill)], dim=1)
+        return t.view(b, rounds, s).transpose(1, 2)
+
+    x = rows[:a].reshape(a, b, r)
+    f = rows[a].reshape(b, r)
+    d = rows[a + 1].reshape(b, r)
+    sit = rows[a + 2].view(torch.int32).reshape(b, r)
+    iters = rows[a + 3].view(torch.int32).reshape(b, r)
+    slot = torch.arange(s, device=rows.device)
+    hit = per_slot(sit, 0) > 0
+    first = hit.to(torch.int8).argmax(dim=2, keepdim=True)
+    succ_iters = torch.where(hit.any(dim=2),
+                             per_slot(sit, 0).gather(2, first)[..., 0],
+                             0).to(torch.int32)
+    if reseed:
+        ds = per_slot(d, float("inf"))
+        ds = torch.where(torch.isnan(ds), float("inf"), ds)
+        near, k = ds.min(dim=2)
+        success = near < float("inf")
+        pick = k * s + slot
+    else:
+        success = hit[..., 0]
+        pick = slot.expand(b, s)
+    take = success if reseed else torch.ones_like(success)
+    pose = torch.arange(b, device=rows.device)[:, None]
+    xs = x.permute(1, 2, 0)[pose, pick]
+    x_out = torch.where(take[..., None], xs, torch.zeros_like(xs))
+    f_out = torch.where(take, f[pose, pick], float("inf"))
+    ridx = torch.where(take, pick, 0).to(torch.int32)
+    per_pose = iters.sum(dim=1, dtype=torch.int64)
+    return LaneResult(x=x_out, f=f_out, success=success, restart_index=ridx,
+                      succ_iters=succ_iters, lane_iters=per_pose.sum(),
+                      pose_iters=per_pose[:, None].to(torch.int32))
 
 
 def pose_lane_iters(active_iters: torch.Tensor) -> torch.Tensor:
@@ -722,11 +845,13 @@ def probe_row(lanes: LaneResult,
     start, the last draw from the pose queue and the last warp exit
     (``%globaltimer`` ns),
     the warp slots a pair's earlier warp waited for the later one (32 per
-    iteration between them, summed over the poses on a pair of warps) and
-    the lanes' busy iterations (``lane_busy`` summed; 0 without it),
-    written into ``out`` where given (six small launches, four more for
-    poses on pairs of warps).  Rows of several launches add up to a row
-    :func:`probe_counts` reads alike."""
+    iteration between them, summed over the poses on a pair of warps),
+    the lanes' busy iterations (``lane_busy`` summed; 0 without it) and
+    the restart queue's draws and pose switches (``draws`` summed; 0 from
+    the pose groups), written into ``out`` where given (seven small
+    launches, four more for poses on pairs of warps).  Rows of several
+    launches add up to a row :func:`probe_counts` and :func:`draw_counts`
+    read alike."""
     t = lanes.warp_times
     if out is None:
         out = torch.empty(telemetry.PROBE_WIDTH, dtype=torch.int64,
@@ -749,6 +874,10 @@ def probe_row(lanes: LaneResult,
                   out=out[6])
     else:
         out[6:7].zero_()
+    if lanes.draws is not None:
+        torch.sum(lanes.draws, dim=0, dtype=torch.int64, out=out[7:9])
+    else:
+        out[7:9].zero_()
     return out
 
 
@@ -763,8 +892,16 @@ def probe_counts(row) -> tuple:
     spent inside an attempt.  The one definition of slot use, tail and the
     pair's wait: the telemetry's counters, :func:`exec_slots` and
     :func:`schedule_profile` read it."""
-    ran, trips, start, draw, end, wait, busy = (int(v) for v in row)
+    ran, trips, start, draw, end, wait, busy = (int(v) for v in row[:7])
     return ran, 32 * trips, end - start, end - draw, wait, busy
+
+
+def draw_counts(row) -> tuple:
+    """``(restart_draws, pose_switch_draws)`` of a :func:`probe_row` or a
+    sum of them: the restarts the restart queue handed out (B * R a
+    launch; 0 from the pose groups) and the draws whose pose differs from
+    the drawing lane's previous restart's."""
+    return int(row[7]), int(row[8])
 
 
 def exec_slots(lanes: LaneResult) -> int:
@@ -832,11 +969,19 @@ def solve_kernel(plan: KernelPlan, tgt_r: torch.Tensor, tgt_t: torch.Tensor,
     with torch.cuda.device(device):
         with telemetry.span("optik.ik.layout"):
             seeds = plan.seeds(x0, restart_offset, lane0_stream)
-            seeds = seeds.permute(2, 0, 1).reshape(a, b * plan.s).contiguous()
-            tgt = pack_targets(tgt_r, tgt_t)
             table = plan.table(device, restart_offset) if plan.reseed \
                 else None
-            qx0 = x0.T.contiguous() if plan.reseed and plan.quality else None
+            if queued(plan):
+                # Lane-major start points and one record a pose.
+                seeds = seeds.reshape(b * plan.s, a).contiguous()
+                tgt = pack_records(tgt_r, tgt_t, x0)
+                qx0 = None
+            else:
+                seeds = seeds.permute(2, 0, 1).reshape(a, b * plan.s) \
+                    .contiguous()
+                tgt = pack_targets(tgt_r, tgt_t)
+                qx0 = x0.T.contiguous() if plan.reseed and plan.quality \
+                    else None
         return launch_lanes(plan, seeds, tgt, table, qx0, reseed=plan.reseed,
                             freeze=plan.freeze, fmad=fmad)
 

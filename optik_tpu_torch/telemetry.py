@@ -38,17 +38,23 @@ profiler shows it as a ``user_annotation`` on the timeline of the kernels.
 schedule probe: each launch reduces it on the card into a row of a ring of
 ``LAUNCH_ROWS`` per card (``lm_kernel.probe_row``; a full ring is summed
 on the card before it is overwritten), without a sync, until :func:`export`
-reads them through ``lm_kernel.probe_counts``: ``lm.lane_iters`` (the pose
-groups' iterations times S), ``lm.slots`` (the warp slots executed, 32 per
-warp loop trip), ``lm.span_ns`` (last warp exit less first warp start),
-``lm.tail_ns`` (last warp exit less the last draw from the pose queue),
+reads them through ``lm_kernel.probe_counts`` and ``draw_counts``:
+``lm.lane_iters`` (the pose groups' iterations times S; on the restart
+queue of uncapped Quality, the iterations the restarts ran),
+``lm.slots`` (the warp slots executed, 32 per warp loop trip),
+``lm.span_ns`` (last warp exit less first warp start), ``lm.tail_ns``
+(last warp exit less the last draw from the pose or restart queue),
 ``lm.pair_wait_slots`` (for poses on a pair of warps, 32 times the
 iterations by which one warp's run on the pose was shorter than the
 other's: the slots the earlier warp waited at the pair's barrier, from
-the probe's per-pose iterations) and ``lm.lane_busy_iters`` (the
-iterations the lanes spent inside an attempt, which the Quality build
-records per pose while telemetry records; 0 from Speed launches), summed
-over launches, and per launch its span, tail and last warp exit.
+the probe's per-pose iterations; 0 on the restart queue),
+``lm.lane_busy_iters`` (the iterations the lanes spent inside an attempt,
+which the Quality build records per pose while telemetry records; 0 from
+Speed launches), ``lm.restart_draws`` (the restarts the restart queue
+handed out, B * R a launch; 0 from the pose groups) and
+``lm.pose_switch_draws`` (those draws whose pose differs from the lane's
+previous restart's), summed over launches, and per launch its span, tail
+and last warp exit.
 
 **The card's clock.**  :func:`export` reads each card's ``%globaltimer``
 against ``perf_counter_ns`` (a one-thread read, bracketed by the host clock
@@ -82,8 +88,9 @@ CALIBRATION_ROUNDS = 16
 # The counters lm_kernel.probe_counts reads from a sum of probe rows, and
 # the width of a row (lm_kernel.probe_row).
 PROBE_SUMS = ("lm.lane_iters", "lm.slots", "lm.span_ns", "lm.tail_ns",
-              "lm.pair_wait_slots", "lm.lane_busy_iters")
-PROBE_WIDTH = 7
+              "lm.pair_wait_slots", "lm.lane_busy_iters", "lm.restart_draws",
+              "lm.pose_switch_draws")
+PROBE_WIDTH = 9
 
 _OFF = contextlib.nullcontext()
 _on = False
@@ -280,7 +287,7 @@ def export() -> dict:
     """Everything recorded since the last :func:`reset`, as plain Python
     values (it synchronises with each card that holds counters)."""
     # Imported here: lm_kernel imports this module.
-    from .ops.cuda.lm_kernel import probe_counts
+    from .ops.cuda.lm_kernel import draw_counts, probe_counts
 
     rec = _rec
     with rec.lock:
@@ -293,7 +300,9 @@ def export() -> dict:
         cards = dict(rec.cards)
     devices = {}
     for device, card in cards.items():
-        for name, v in zip(PROBE_SUMS, probe_counts(card.sums().tolist())):
+        sums = card.sums().tolist()
+        for name, v in zip(PROBE_SUMS,
+                           probe_counts(sums) + draw_counts(sums)):
             counters[name] += v
         n = min(card.launches, LAUNCH_ROWS)
         first = card.launches - n

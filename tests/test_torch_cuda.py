@@ -444,24 +444,26 @@ def test_queue_edges_uncontracted_kernel_is_bitwise_plain(robot, case):
     assert prof["span_ms"] > 0 and 0 <= prof["tail_share"] <= 1
 
 
-# (restarts, seed lanes, poses): uncapped Quality on a pair of warps that
-# meet only at their draws (64 lanes, and 48 in 32 + 16), and on groups
-# of 16 threads inside a warp (12 lanes).
+# (restarts, seed lanes, poses): uncapped Quality, which runs the restart
+# queue, at the widths that once put a pose on a pair of warps (64 lanes,
+# and 48 in 32 + 16) and on groups of 16 threads inside a warp (12 lanes).
 PAIR_CASES = [(256, 64, 2048), (96, 48, 3000), (48, 12, 6000)]
 
 
 @pytest.mark.parametrize("restarts,seeds,b", PAIR_CASES)
 def test_quality_pair_wait_and_lane_busy_counters(robot, restarts, seeds,
                                                   b):
-    """The counters of an uncapped Quality launch: the pair's wait is 32
-    slots for every iteration between its two warps' runs on a pose (from
-    ``pose_iters``), the slots held (executed and waited) bound the
-    lane-iterations, so slot use is at most 100%, and the lanes' busy
-    iterations are the plain loop's per-lane active iterations, summed
-    per warp (the uncontracted build runs the plain schedule bitwise)."""
+    """The counters of an uncapped Quality launch, on the restart queue:
+    no pose holds a pair of warps, so the pair's wait is 0; the lanes'
+    busy iterations and the lane-iterations are both the iterations the
+    restarts ran, per pose the plain loop's per-lane active iterations
+    summed over the pose's lanes (the uncontracted build runs each restart
+    bitwise as the plain schedule does), within the slots held; the queue
+    hands out B * R restarts."""
     cfg = QUALITY.replace(max_restarts=restarts, seed_batch=seeds,
                           max_iters=48)
     plan = lm_kernel.KernelPlan(robot.spec, cfg)
+    assert lm_kernel.queued(plan)
     tr, tt, x0 = _problem(robot, seed=8, b=b)
     off = lm_kernel.solve_kernel(plan, tr, tt, x0, fmad=False)
     assert off.lane_busy is None
@@ -474,25 +476,145 @@ def test_quality_pair_wait_and_lane_busy_counters(robot, restarts, seeds,
         telemetry.reset()
     for name in LANE_FIELDS:
         assert torch.equal(getattr(k, name), getattr(off, name)), name
-    halves = 2 if plan.s_pad == 64 else 1
-    assert k.pose_iters.shape == k.lane_busy.shape == (b, halves)
-    it = k.pose_iters.long() // plan.s
-    wait = 32 * int((it[:, 0] - it[:, -1]).abs().sum())
-    assert c["lm.pair_wait_slots"] == wait
-    assert (wait > 0) == (halves == 2)
+    assert k.pose_iters.shape == k.lane_busy.shape == (b, 1)
+    assert c["lm.pair_wait_slots"] == 0
     held = c["lm.slots"] + c["lm.pair_wait_slots"]
     assert held == lm_kernel.exec_slots(k)
-    assert 0 < c["lm.lane_iters"] <= held
-    assert 0 < c["lm.lane_busy_iters"] < c["lm.lane_iters"]
+    assert 0 < c["lm.lane_busy_iters"] == c["lm.lane_iters"] <= held
+    assert c["lm.restart_draws"] == b * restarts
+    assert 0 < c["lm.pose_switch_draws"] < c["lm.restart_draws"]
     prof = lm_kernel.schedule_profile(k)
-    assert 0 < prof["lane_busy_share"] < prof["occupied_share"] <= 1
+    assert 0 < prof["lane_busy_share"] == prof["occupied_share"] <= 1
+    assert prof["pair_wait_share"] == 0
     p = lm_kernel.solve_plain(plan, tr, tt, x0, track_active=True)
-    act = p.active_iters.long()
-    per_warp = torch.stack([act[:, :32].sum(1), act[:, 32:].sum(1)], 1) \
-        if halves == 2 else act.sum(1, keepdim=True)
-    assert torch.equal(k.lane_busy.long(), per_warp)
-    assert int(k.lane_iters) == int(lm_kernel.pose_lane_iters(
-        p.active_iters))
+    per_pose = p.active_iters.long().sum(1, keepdim=True)
+    assert torch.equal(k.lane_busy.long(), per_pose)
+    assert torch.equal(k.pose_iters.long(), per_pose)
+    assert int(k.lane_iters) == int(p.active_iters.sum())
+
+
+# The restart queue against the plain lanes, uncontracted: (config, poses,
+# joints, solve options).
+RESTART_QUEUE_CASES = {
+    "panda_256_64_b4096": (QUALITY.replace(max_restarts=256, seed_batch=64,
+                                           max_iters=48), 4096, 7, {}),
+    "panda_64_8": (QUALITY.replace(max_restarts=64, seed_batch=8), 512, 7,
+                   {}),
+    "no_reseed": (QUALITY.replace(max_restarts=16, seed_batch=16), 512, 7,
+                  {}),
+    "runtime_chain_48": (QUALITY.replace(max_restarts=64, seed_batch=16),
+                         256, 48, {}),
+    "offset_lane0_stream": (QUALITY.replace(max_restarts=64, seed_batch=8),
+                            512, 7, {"restart_offset": 64,
+                                     "lane0_stream": True}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RESTART_QUEUE_CASES))
+def test_restart_queue_is_bitwise_plain(robot, case):
+    """Uncapped Quality runs the restart queue (each lane draws (pose,
+    restart) items) and its pick: every lane output is bitwise the plain
+    version's, whose lane s runs restarts s, s + S, ... in turn."""
+    cfg, b, a, kw = RESTART_QUEUE_CASES[case]
+    bot = robot if a == 7 else Robot(_wide_spec(a), device="cuda")
+    plan = lm_kernel.KernelPlan(bot.spec, cfg)
+    assert lm_kernel.queued(plan) and plan.runtime_chain == (a > 32)
+    tr, tt, x0 = _problem(bot, seed=19, b=b)
+    k = lm_kernel.solve_kernel(plan, tr, tt, x0, fmad=False, **kw)
+    p = lm_kernel.solve_plain(plan, tr, tt, x0, track_active=True, **kw)
+    for name in LANE_FIELDS:
+        assert torch.equal(getattr(k, name), getattr(p, name)), name
+    assert bool(k.success.any()) and k.draws is not None
+    assert int(k.lane_iters) == int(p.active_iters.sum())
+    r_launch = plan.r_total if plan.reseed else plan.s
+    assert int(k.draws[:, 0].sum()) == b * r_launch
+
+
+def test_restart_queue_tie_takes_the_lower_restart(robot):
+    """Two equal table rows of one lane's restarts (9 and 17 at S = 8) run
+    the same attempt: on the queue, as in the lane, the lower index wins
+    the tie, so 17 is never a lane's pick while 9 is one's; every output
+    bitwise the plain version's."""
+    cfg = QUALITY.replace(max_restarts=64, seed_batch=8)
+    plan = lm_kernel.KernelPlan(robot.spec, cfg)
+    tr, tt, x0 = _problem(robot, seed=20)
+    table = plan.table(x0.device).clone()
+    table[17] = table[9]
+    plan._tables[(x0.device, 0, torch.float32)] = table
+    k = lm_kernel.solve_kernel(plan, tr, tt, x0, fmad=False)
+    p = lm_kernel.solve_plain(plan, tr, tt, x0)
+    for name in LANE_FIELDS:
+        assert torch.equal(getattr(k, name), getattr(p, name)), name
+    picks = k.restart_index[:, 1][k.success[:, 1]]
+    assert bool((picks == 9).any()) and not bool((picks == 17).any())
+
+
+def test_capped_quality_keeps_the_pose_groups(robot):
+    """A success cap counts successes in lockstep order, so capped Quality
+    runs the pose groups: no restart queue, no draws, and lane outputs
+    bitwise the plain version's."""
+    for cfg in (QUALITY.replace(max_restarts=12, seed_batch=4,
+                                quality_max_successes=1),
+                QUALITY.replace(max_restarts=128, seed_batch=64,
+                                quality_max_successes=3)):
+        plan = lm_kernel.KernelPlan(robot.spec, cfg)
+        assert not lm_kernel.queued(plan)
+        tr, tt, x0 = _problem(robot, seed=21)
+        k = lm_kernel.solve_kernel(plan, tr, tt, x0, fmad=False)
+        p = lm_kernel.solve_plain(plan, tr, tt, x0, track_active=True)
+        for name in LANE_FIELDS:
+            assert torch.equal(getattr(k, name), getattr(p, name)), name
+        assert k.draws is None
+        assert int(k.lane_iters) == int(lm_kernel.pose_lane_iters(
+            p.active_iters))
+
+
+def test_restart_queue_repeats_bitwise(robot):
+    """Five launches of the production build on one batch: the queue hands
+    items out in another order each time, the lane outputs never move."""
+    cfg = QUALITY.replace(max_restarts=256, seed_batch=64, max_iters=48)
+    plan = lm_kernel.KernelPlan(robot.spec, cfg)
+    tr, tt, x0 = _problem(robot, seed=22, b=4096)
+    runs = [lm_kernel.solve_kernel(plan, tr, tt, x0) for _ in range(5)]
+    for k in runs[1:]:
+        for name in LANE_FIELDS:
+            assert torch.equal(getattr(k, name), getattr(runs[0], name)), \
+                name
+        assert int(k.lane_iters) == int(runs[0].lane_iters)
+
+
+@pytest.mark.parametrize("capped", [False, True])
+def test_restart_draw_counters(robot, capped):
+    """``lm.restart_draws`` is B * R a launch on the restart queue and 0
+    on the pose groups (capped Quality, whose pair of warps stops
+    together), where the busy count stays below the lockstep one; on the
+    queue the three Quality counters read."""
+    cfg = QUALITY.replace(max_restarts=128, seed_batch=64, max_iters=48,
+                          quality_max_successes=3 if capped else 0)
+    plan = lm_kernel.KernelPlan(robot.spec, cfg)
+    b = 1024
+    tr, tt, x0 = _problem(robot, seed=23, b=b)
+    telemetry.reset()
+    try:
+        with telemetry.recording():
+            for _ in range(2):
+                lm_kernel.solve_kernel(plan, tr, tt, x0, fmad=False)
+        out = telemetry.export()
+    finally:
+        telemetry.reset()
+    c = out["counters"]
+    held = c["lm.slots"] + c["lm.pair_wait_slots"]
+    if capped:
+        assert c["lm.restart_draws"] == c["lm.pose_switch_draws"] == 0
+        assert c["lm.pair_wait_slots"] == 0
+        assert 0 < c["lm.lane_busy_iters"] <= c["lm.lane_iters"] <= held
+    else:
+        assert c["lm.restart_draws"] == 2 * b * 128
+        assert c["lm.pair_wait_slots"] == 0
+        assert 0 < c["lm.lane_busy_iters"] <= held
+        tail = out["devices"][str(x0.device)]["tail_ns"]
+        assert len(tail) == 2 and all(0 < t for t in tail)
+        assert 0 < c["lm.tail_ns"] < c["lm.span_ns"]
 
 
 def test_back_to_back_launches_reset_the_queue(robot):

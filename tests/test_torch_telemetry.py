@@ -84,12 +84,15 @@ def test_off_path_allocates_nothing_and_annotates_nothing(monkeypatch):
     monkeypatch.setattr(telemetry, "record_function", refuse)
     assert telemetry.span("a") is telemetry.span("b")
     # The LM launch's probe is what it always was: no words for the lanes'
-    # busy iterations, which only a Quality launch while recording gets.
+    # busy iterations, which only a Quality launch on pose groups gets while
+    # recording (one a pose and warp of its group; the restart queue of
+    # uncapped Quality reads them from its per-pose iterations).
     spec = Robot.from_urdf_file(asset_path("panda.urdf"), "panda_link0",
                                 "panda_hand_tcp", device="cpu").spec
     plans = [lm_kernel.KernelPlan(spec, CFG.replace(
-        solution_mode="quality", max_restarts=r, seed_batch=s))
-        for r, s in ((256, 64), (32, 8))]
+        solution_mode="quality", max_restarts=r, seed_batch=s,
+        quality_max_successes=cap))
+        for r, s, cap in ((256, 64, 3), (32, 8, 0), (256, 64, 0))]
     speed = lm_kernel.KernelPlan(spec, CFG)
     names = [f"optik.n{i}" for i in range(8)]
 
@@ -104,7 +107,7 @@ def test_off_path_allocates_nothing_and_annotates_nothing(monkeypatch):
     try:
         before = tracemalloc.take_snapshot()
         for _ in range(2000):
-            assert off_path() == [0, 0]
+            assert off_path() == [0, 0, 0]
         after = tracemalloc.take_snapshot()
     finally:
         tracemalloc.stop()
@@ -116,7 +119,7 @@ def test_off_path_allocates_nothing_and_annotates_nothing(monkeypatch):
     assert _empty(telemetry.export())
     with telemetry.recording():
         assert [lm_kernel.lane_busy_words(p, 4096) for p in plans] == [
-            2 * 4096, 4096]
+            2 * 4096, 0, 0]
         assert lm_kernel.lane_busy_words(speed, 4096) == 0
     assert lm_kernel.lane_busy_words(speed, 4096) == 0
 
@@ -247,7 +250,7 @@ def test_probe_reduction_matches_schedule_profile_and_exec_slots():
     row = lm_kernel.probe_row(lanes)
     assert row.dtype == torch.int64
     assert row.tolist() == [4 * 160, 30 + 41 + 9 + 35, 1_000, 7_500, 12_000,
-                            0, 0]
+                            0, 0, 0, 0]
     ran, slots, span, tail, wait, busy = lm_kernel.probe_counts(
         row.tolist())
     assert ran == 4 * 160
@@ -326,6 +329,54 @@ def test_pair_wait_and_lane_busy_from_a_probe_of_pairs(monkeypatch):
     assert c["lm.pair_wait_slots"] == 2 * wait
     assert c["lm.lane_busy_iters"] == 2 * busy
     assert c["lm.slots"] == 2 * slots and c["lm.lane_iters"] == 2 * ran
+
+
+def _queue_probe():
+    """A restart-queue launch of 3 warps over B = 4 poses, S = 8, R = 16:
+    per pose the iterations its restarts ran (also the busy count, taken
+    while recording), per warp its draws and pose switches."""
+    iters = torch.tensor([[410], [388], [512], [260]], dtype=torch.int32)
+    times = torch.tensor([[1_000, 8_000, 9_500], [1_010, 8_200, 9_000],
+                          [1_020, 7_900, 9_900]], dtype=torch.int64)
+    trips = torch.tensor([60, 58, 64], dtype=torch.int32)
+    draws = torch.tensor([[22, 19], [21, 18], [21, 20]], dtype=torch.int32)
+    b, s, a = 4, 8, 7
+    return lm_kernel.LaneResult(
+        x=torch.zeros(b, s, a), f=torch.zeros(b, s),
+        success=torch.zeros(b, s, dtype=torch.bool),
+        restart_index=torch.zeros(b, s, dtype=torch.int32),
+        succ_iters=torch.zeros(b, s, dtype=torch.int32),
+        lane_iters=iters.sum(dtype=torch.int64), warp_trips=trips,
+        warp_times=times, pose_iters=iters, lane_busy=iters, draws=draws)
+
+
+def test_restart_queue_probe_counts_its_draws(monkeypatch):
+    """A restart-queue launch's row: no pair waits (no pose holds a pair
+    of warps), the busy iterations the lane-iterations, and its draws and
+    pose switches summed into ``lm.restart_draws`` and
+    ``lm.pose_switch_draws``; a pose-group launch adds 0 to both."""
+    lanes = _queue_probe()
+    row = lm_kernel.probe_row(lanes)
+    ran, slots, span, tail, wait, busy = lm_kernel.probe_counts(
+        row.tolist())
+    assert ran == busy == 410 + 388 + 512 + 260
+    assert wait == 0 and slots == 32 * (60 + 58 + 64)
+    assert span == 9_900 - 1_000 and tail == 9_900 - 8_200
+    assert lm_kernel.draw_counts(row.tolist()) == (64, 57)
+    prof = lm_kernel.schedule_profile(lanes)
+    assert prof["lane_busy_share"] == prof["occupied_share"] == ran / slots
+    monkeypatch.setattr(telemetry, "card_clock",
+                        lambda lib, device: (0, 0))
+    cpu = torch.device("cpu")
+    telemetry.reset()
+    with telemetry.recording():
+        for ln in (lanes, _hand_probe(), lanes):
+            lm_kernel.probe_row(ln, out=telemetry.launch_row(cpu, None))
+    c = telemetry.export()["counters"]
+    telemetry.reset()
+    assert c["lm.restart_draws"] == 2 * 64
+    assert c["lm.pose_switch_draws"] == 2 * 57
+    assert c["lm.lane_busy_iters"] == 2 * ran
 
 
 def test_probe_rows_sum_on_the_card_and_exits_take_the_host_clock(
