@@ -5,12 +5,13 @@
 
 Phases (each prints a line; any failed check exits non-zero):
   1. the card's name and power limit, as nvidia-smi reports them;
-  2. the build of every library the script launches, one nvcc per variant,
+  2. the build of every library the script uses, one nvcc per variant,
      all started together: the LM kernel (optik_tpu_torch/csrc/lm_kernel.cu)
      with the Panda's chain compiled in, in Speed, Speed+weights, Speed with
      two-warp poses and Quality, contracted and uncontracted (--fmad=false),
-     Quality with two-warp poses (phase 17's capped rows), the UR5's Speed
-     library (phases 16 and 17) and the UR3e's (phase 17's bench_ops),
+     Quality with two-warp poses (capped Quality at 64 lanes, phase 9),
+     contracted and uncontracted, the UR5's Speed library (phase 16) and
+     the UR3e's (phase 9c), contracted and uncontracted,
      phase 18's chains (the mobile Panda in Speed, Speed+weights and
      Quality, 16 joints and the widest chain folded into a library in
      Speed, each contracted and uncontracted; the widest first), the
@@ -43,7 +44,9 @@ Phases (each prints a line; any failed check exits non-zero):
   6. the main path, Robot.from_urdf_file -> fk_batch -> ik_batch in Speed
      mode on the Panda at B=131,072 (64 restarts, 8 lanes, 32 iterations,
      tol_f 1e-6, f32): the launch counter rises, success >= 0.99, every
-     found cost <= tol_f, FK of found x within 2e-3; solves/s;
+     found cost <= tol_f, FK of found x within 2e-3; solves/s; a profiler
+     count of the CUDA synchronisations in 8 chained calls whose summed
+     found_count is fetched once (none beyond that fetch);
   7. the Quality path at full width, Robot.ik_batch with 256 restarts, 64
      lanes, 48 iterations at B=4096, with the same checks, and the Quality
      kernel against its plain version on the same B=4096 inputs
@@ -54,13 +57,18 @@ Phases (each prints a line; any failed check exits non-zero):
   9. option cases at B=512, uncontracted kernel bitwise equal to plain:
      per-axis weights (and a result that differs from the unweighted one),
      seed counts 3, 12 and 64, Quality with 16 lanes, Quality with a
-     success cap, restart_offset and lane0_stream; then S=128 (Quality, 256
+     success cap, capped Quality at 256 restarts on 64 lanes (cap 8, its
+     poses on a pair of warps; success >= 0.99), restart_offset and
+     lane0_stream; then S=128 (Quality, 256
      restarts, 128 lanes), more lanes per pose than the kernel holds,
      through Robot.ik_batch: it runs on the card on the plain loop (the
      launch counter does not rise: the route is by config), success >=
      0.99, every found cost <= tol_f, FK of found x within 2e-3, found masks
      within 0.1% of the port's own f64 plain loop on the host CPU over the
-     same inputs (a comparison, never a substitute);
+     same inputs (a comparison, never a substitute); (9c) the UR3e,
+     Robot.ik_batch in the main config at B=512: one launch, success >=
+     0.99, every found cost <= tol_f, FK of found x within 2e-3, and its
+     uncontracted kernel bitwise equal to plain;
  18. chains wider than the Panda, after 9 and before 10: (a) the main path
      on the 11-joint mobile Panda (the repo's Panda on a holonomic base
      with a lift, written by mobile_panda_urdf), Robot.from_urdf_str ->
@@ -139,23 +147,9 @@ Phases (each prints a line; any failed check exits non-zero):
      cell (panda_uniform, panda_normal, ur5_tight; weak and strong budgets;
      the engine at 32 iterations beside the weak budget), every found pose
      checked as in (b), strong-budget panda_uniform >= 0.99; the SLSQP
-     column (CPU time) stays off the card's run; the phase's wall time;
-17. the benchmark harness (optik_tpu_torch/benchmarks/bench*.py), after 16
-     and before 15: (a) python3 -m optik_tpu_torch.benchmarks.bench in its
-     own process, as a benchmark cell runs it, at every default (B=131,072,
-     5 sets): its row names the card, success >= 0.99, every call a launch,
-     finite bound_ms, fp32_util and spread, printed beside phase 6's
-     solves/s (a difference above the spread is printed, not gated:
-     host-bound numbers move between calls); a profiler count of the
-     synchronisations in one pipelined pass of that shape (one); (b)
-     bench_workloads, bench_latency and bench_ops in this process at their
-     defaults and bench_scaling at n = 1 (an NCCL world of one rank, one
-     timed call per entry: the depth cut that keeps the script near 300 s):
-     every
-     row names the card and is printed, success >= 0.99 on the Quality,
-     capped Quality, UR5 and motion-planning rows, diff-IK ok rate >= 0.99,
-     each script launches the kernel; (c) example_cpp's 10,000 poses on the
-     host, its two lines beside the host CPU's model; the phase's wall time;
+     column (CPU time) stays off the card's run; (d) example_cpp's 10,000
+     poses on the host, its two lines beside the host CPU's model; the
+     phase's wall time;
 15. the multi-device paths of optik_tpu_torch.parallel on
      the one card: (a) a real NCCL group of one rank, a (1, 1) mesh:
      build_seed_sharded_solver and build_sharded_cascade at the main
@@ -170,11 +164,11 @@ Phases (each prints a line; any failed check exits non-zero):
      sharded single-shot path on (2, 1) bitwise Robot.ik_batch on the whole
      batch; (d) ik_sharded (the plain loop) on (1, 2) at B=1,024 bitwise the
      unsharded plain loop, lane_iters equal.  Several ranks on one card
-     prove the merge, not the scaling.  Phase 6 calls ik_batch in bench.py's
+     prove the merge, not the scaling.  Phase 6 calls ik_batch in ikbench's
      form (validate_seeds=False, rescue_overflow=False; overflow_count 0).
 Then one JSON line with the diff-IK, S=128, wide-chain, run-time-chain,
-float64, native, parity, harness and sharded paths, one with every kernel
-(lm_solve's launches on phases 9, 16 and 17 among its fields;
+float64, native, parity and sharded paths, one with every kernel
+(lm_solve's launches on phases 9 and 16 among its fields;
 lm_solve_runtime_chain's per DoF) and, last, the result line.  Without a
 card, or run from a directory that holds no checkout, it exits 2 and prints
 no result.
@@ -213,7 +207,6 @@ NATIVE_TOL = 2e-5      # f32 on the card against the native f64
 FK_TOL = 2e-3         # cost <= 1e-6 is a pose residual of ~1e-3
 MASK_DIFF_FRAC = 1e-3  # marginal poses (cost within ~1e-7 of tol_f)
 LANE_FIELDS = ("x", "f", "success", "restart_index", "succ_iters")
-SCALING_ITERS = 1      # phase 17's bench_scaling depth (its default: 3)
 # Phase 18's weighted case on the mobile Panda: every weight >= 1, so a
 # weighted cost <= tol_f bounds the pose error as the unweighted cost does
 # and phase 3's FK check holds as it stands.
@@ -327,6 +320,29 @@ def profile_split(fn, reps):
     if not kernels:
         return None
     return {"kernels": kernels, "launches": launches, "window_ms": window_ms}
+
+
+def sync_count(fn):
+    """CUDA runtime synchronisations the profiler sees in one fn() beyond
+    those it sees around a single fetch of a device scalar (so 0 for a
+    function that synchronises once, whatever the profiler adds itself);
+    None where it records no CUDA runtime call at all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def count(f):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            f()
+        names = {ev.key: ev.count for ev in prof.key_averages()}
+        if not any(k.startswith("cuda") for k in names):
+            return None
+        return sum(n for k, n in names.items()
+                   if k.startswith("cuda") and "Synchronize" in k)
+
+    one = torch.ones((), device="cuda")
+    base, got = count(lambda: int(one + 1)), count(fn)
+    return None if base is None or got is None else got - base
 
 
 def lanes_equal(k, p, what):
@@ -757,9 +773,9 @@ def percentiles_us(seconds):
 
 def native_phases(robot, cfg):
     """Phase 16: the native latency path (optik_tpu_torch.native) beside the
-    card's scalar path, then the success-parity harnesses' engine and
-    native columns.  Returns the entries of the ``paths`` line and the LM
-    kernel's launches per part."""
+    card's scalar path, the success-parity harnesses' engine and native
+    columns, then the C++ example on the host.  Returns the entries of the
+    ``paths`` line and the LM kernel's launches per part."""
     import numpy as np
     import torch
 
@@ -767,6 +783,7 @@ def native_phases(robot, cfg):
     from optik_tpu_torch.benchmarks.timing import host_cpu
     from optik_tpu_torch.models import asset_path
     from optik_tpu_torch.native import HostChain
+    from optik_tpu_torch.native import host as native_host
     from optik_tpu_torch.ops.cuda import lm_kernel
 
     t_phase = time.perf_counter()
@@ -791,7 +808,7 @@ def native_phases(robot, cfg):
           f"native FK / Jacobian differ from the card's by {fk_err} / "
           f"{jac_err} (limit {NATIVE_TOL})")
 
-    rng = np.random.default_rng(7)  # benchmarks/bench_latency.py's seed
+    rng = np.random.default_rng(7)  # the JAX package's latency script's seed
     targets = [chain.fk(rng.uniform(lo, hi)) for _ in range(N_LATENCY)]
     seeds = [rng.uniform(lo, hi) for _ in range(N_LATENCY)]
     budget = dict(tol_f=cfg.tol_f, max_iters=cfg.max_iters,
@@ -822,7 +839,7 @@ def native_phases(robot, cfg):
     print(f"native binding vs the card @{N_NATIVE_KIN} configurations: FK "
           f"within {fk_err:.3g}, Jacobian within {jac_err:.3g} (limit "
           f"{NATIVE_TOL}); single-solve latency over {N_LATENCY} reachable "
-          f"poses (bench_latency's config): HostChain.ik p50 {p_nat[0]:.1f} "
+          f"poses (the main config): HostChain.ik p50 {p_nat[0]:.1f} "
           f"/ p90 {p_nat[1]:.1f} us ({ok['native']} found; host CPU {cpu}), "
           f"scalar Robot.ik on the card p50 {p_card[0]:.1f} / p90 "
           f"{p_card[1]:.1f} us ({ok['card']} found, one launch each)",
@@ -889,170 +906,8 @@ def native_phases(robot, cfg):
                   and c["budget"] == "strong")
     check(strong["engine_success"] >= 0.99, f"parity_hard panda_uniform "
           f"strong engine success {strong['engine_success']} < 0.99")
-    phase_s = time.perf_counter() - t_phase
-    print(f"phase 16 took {phase_s:.1f} s", flush=True)
-    paths.append({"name": "parity_hard", "poses": N_HARD, "cells": cells,
-                  "launches": launches["parity_hard"], "phase_s": phase_s})
-    return paths, launches
 
-
-def sync_count(fn):
-    """CUDA runtime synchronisations the profiler sees in one fn() beyond
-    those it sees around a single fetch of a device scalar (so 0 for a
-    function that synchronises once, whatever the profiler adds itself);
-    None where it records no CUDA runtime call at all."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    def count(f):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            f()
-        names = {ev.key: ev.count for ev in prof.key_averages()}
-        if not any(k.startswith("cuda") for k in names):
-            return None
-        return sum(n for k, n in names.items()
-                   if k.startswith("cuda") and "Synchronize" in k)
-
-    one = torch.ones((), device="cuda")
-    base, got = count(lambda: int(one + 1)), count(fn)
-    return None if base is None or got is None else got - base
-
-
-def harness_phase(device_name, card, main_rate, pipelined_pass):
-    """Phase 17: the benchmark harness (optik_tpu_torch/benchmarks/bench*.py)
-    on the card, and the C++ example on its host.  Returns the entry of the
-    ``paths`` line and the LM kernel's launches per script."""
-    import math
-
-    import numpy as np
-    import torch
-
-    from optik_tpu_torch.benchmarks import (bench, bench_latency, bench_ops,
-                                            bench_scaling, bench_workloads)
-    from optik_tpu_torch.benchmarks.timing import host_cpu
-    from optik_tpu_torch.models import asset_path
-    from optik_tpu_torch.native import host as native_host
-    from optik_tpu_torch.ops.cuda import lm_kernel
-
-    t_phase = time.perf_counter()
-    launches = {}
-
-    def names_the_card(row, what):
-        check(row.get("device") == device_name and row.get("card") == card,
-              f"{what}: the row names {row.get('device')!r} / "
-              f"{row.get('card')!r}, not the card")
-
-    # 17a. The north-star script as a benchmark cell runs it: its own
-    # process, every default, the libraries of phase 2 from the disk cache.
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m",
-                          "optik_tpu_torch.benchmarks.bench"], cwd=REPO,
-                         capture_output=True, text=True, timeout=900)
-    bench_s = time.perf_counter() - t0
-    check(out.returncode == 0, f"bench exited {out.returncode}:\n"
-          f"{out.stderr[-4000:]}")
-    row = json.loads(out.stdout.strip().splitlines()[-1])
-    names_the_card(row, "bench")
-    want = bench.SETS * bench.ITERS * (2 + 3 * bench.PIPE_REPS)
-    check(row["metric"] == "panda_ik_solves_per_s"
-          and row["batch"] == bench.B and row["success_rate"] >= 0.99
-          and row["solver"] == "ik_batch/cuda-kernel"
-          and row["kernel_launches"] == want,
-          f"bench row: {row}")
-    check(all(math.isfinite(row[k]) for k in ("bound_ms", "fp32_util",
-                                                "spread", "value")),
-          f"bench row has a non-finite field: {row}")
-    launches["bench (its own process)"] = row["kernel_launches"]
-    diff = row["value"] / main_rate - 1.0
-    print(f"bench @B={row['batch']} (every default, {bench_s:.1f} s with "
-          f"start-up): {row['value']:.0f} solves/s pipelined, spread "
-          f"{row['spread']:.4f}, synced {row['synced_solves_per_s']:.0f}, "
-          f"success {row['success_rate']}, {row['lane_iters_per_solve']} "
-          f"lane-iterations per solve, fp32_util {row['fp32_util']:.4f}, "
-          f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} against "
-          f"{row['p50_pipelined_batch_ms']} ms per batch, "
-          f"{row['kernel_launches']} launches; phase 6 in this call: "
-          f"{main_rate:.0f} solves/s (synced, median of 5; bench's synced "
-          f"figure {100 * (row['synced_solves_per_s'] / main_rate - 1):+.1f}"
-          "% from it)"
-          + (f"; they differ by {100 * diff:+.1f}%, more than the spread"
-             if abs(diff) > row["spread"] else ""), flush=True)
-    print("harness row: " + json.dumps(row), flush=True)
-
-    # The pipelined pass synchronises once, at its fetch.
-    n_sync = sync_count(pipelined_pass)
-    check(n_sync is None or n_sync == 0, f"a pipelined pass of bench's "
-          f"shape synchronised {n_sync} times more than one fetch does")
-    print("pipelined pass (8 chained ik_batch calls, found_count added on "
-          "the device, one fetch): "
-          + ("the profiler saw no CUDA runtime call (not measured)"
-             if n_sync is None else f"{n_sync} synchronisations beyond "
-             "those of one scalar fetch"), flush=True)
-
-    # 17b. The other scripts in this process, at their defaults; scaling at
-    # n = 1 (one card) with one timed call per entry, not 3: its plain-loop
-    # entry, ik_sharded, takes ~9 s per call at B = 1,024.
-    rows = []
-    for name, fn in (("bench_workloads", lambda: bench_workloads.run()),
-                     ("bench_latency", lambda: bench_latency.run()),
-                     ("bench_ops", lambda: bench_ops.run()),
-                     ("bench_scaling", lambda: bench_scaling.run(
-                         max_ranks=1, iters=SCALING_ITERS))):
-        lm_kernel.LAUNCHES = 0
-        t0 = time.perf_counter()
-        got = fn()
-        launches[name] = lm_kernel.LAUNCHES
-        for r in got:
-            names_the_card(r, f"{name} {r['metric']}")
-            print("harness row: " + json.dumps(r), flush=True)
-        print(f"{name}: {len(got)} rows in {time.perf_counter() - t0:.1f} "
-              f"s, {launches[name]} launches here", flush=True)
-        rows += got
-    launches["bench_scaling (its rank)"] = sum(
-        r["kernel_launches"] for r in rows
-        if r["metric"].startswith("scaling_"))
-    check(all(launches[k] > 0 for k in ("bench_workloads", "bench_latency",
-                                        "bench_ops",
-                                        "bench_scaling (its rank)")),
-          f"a harness script did not launch the kernel: {launches}")
-    gated = ("panda_quality_256seed_solves_per_s",
-             "panda_quality_256seed_cap_solves_per_s",
-             "ur5_tight_limits_solves_per_s", "motion_planning_solves_per_s")
-    for r in rows:
-        if r["metric"] in gated:
-            check(r["success_rate"] >= 0.99, f"{r['metric']} success "
-                  f"{r['success_rate']} < 0.99")
-        if r["metric"] == "diff_ik_steps_per_s":
-            check(r["ok_rate"] >= 0.99, f"diff-IK ok rate {r['ok_rate']}")
-        if r["metric"] == "ik_b8_latency_split_ms":
-            check(r["inprogram_per_solve_ms"] is not None,
-                  "bench_latency measured no kernel time")
-
-    # bench_latency's in-program figure is CUDA events around 16 launches
-    # that the host issues one by one; the device's own share of it:
-    robot = bench.panda("cuda")
-    lo, hi = robot.joint_limits()
-    split = bench_latency.draws(np.random.default_rng(7), lo, hi,
-                                bench_latency.N_SCALAR)["split"]
-    tr, tt = robot.fk_batch(split[0])
-    x0 = torch.tensor(split[1], dtype=torch.float32, device="cuda")
-    plan = lm_kernel.KernelPlan(robot.spec, bench_latency.split_config())
-    tiled = bench_latency.tile(tr, tt, x0)
-    prof = profile_split(lambda: [lm_kernel.solve_kernel(plan, *tiled)
-                                  for _ in range(bench_latency.CHAIN)], 3)
-    in_prog = next(r["inprogram_per_solve_ms"] for r in rows
-                   if r["metric"] == "ik_b8_latency_split_ms")
-    device_ms = None
-    if prof is not None:
-        device_ms = sum(prof["kernels"].values()) / (3 * bench_latency.CHAIN)
-    print(f"bench_latency in-program: {in_prog} ms per solve by CUDA events "
-          f"around {bench_latency.CHAIN} launches at B = "
-          f"{bench_latency.TILE * bench_latency.B_SPLIT}, of which the device "
-          "is busy " + ("(not measured)" if device_ms is None
-                        else f"{device_ms:.4f} ms (profiler)"), flush=True)
-
-    # 17c. The C++ example on the host.
+    # 16d. The C++ example on the host.
     exe = native_host.build_example()
     panda = asset_path("panda.urdf")
     t0 = time.perf_counter()
@@ -1065,16 +920,14 @@ def harness_phase(device_name, card, main_rate, pipelined_pass):
     check(lines[0].startswith("Successes: ")
           and lines[1].startswith("Average time per solve: "),
           f"example_cpp printed {lines}")
-    cpu = host_cpu()
     print(f"example_cpp ({time.perf_counter() - t0:.1f} s, host CPU "
           f"{cpu}): {lines[0]} / {lines[1]}", flush=True)
     phase_s = time.perf_counter() - t_phase
-    print(f"phase 17 took {phase_s:.1f} s", flush=True)
-    return ({"name": "benchmark harness", "bench": row, "rows": rows,
-             "pipelined_pass_syncs": n_sync,
-             "inprogram_device_ms_per_solve": device_ms,
-             "example_cpp": lines,
-             "host_cpu": cpu, "phase_s": phase_s}, launches)
+    print(f"phase 16 took {phase_s:.1f} s", flush=True)
+    paths.append({"name": "parity_hard", "poses": N_HARD, "cells": cells,
+                  "launches": launches["parity_hard"], "phase_s": phase_s})
+    paths.append({"name": "example_cpp", "lines": lines, "host_cpu": cpu})
+    return paths, launches
 
 
 def sharded_rank(cases, spec, timed_cases):
@@ -1763,9 +1616,8 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
 
     from optik_tpu_torch import Robot, SolverConfig
-    from optik_tpu_torch.benchmarks import (bench_fp32_peak, bench_ops,
-                                            exp_bisect, exp_warp_probe,
-                                            parity_hard)
+    from optik_tpu_torch.benchmarks import (bench_fp32_peak, exp_bisect,
+                                            exp_warp_probe, parity_hard)
     from optik_tpu_torch.benchmarks.timing import card_line, event_ms
     from optik_tpu_torch.models import ChainSpec, asset_path
     from optik_tpu_torch.native import host as native_host
@@ -1801,15 +1653,17 @@ def main() -> int:
         "quality": (True, False, False, True),
         "quality uncontracted": (True, False, False, False),
         "quality wide": (True, False, True, True),
+        "quality wide uncontracted": (True, False, True, False),
     }
     # The UR5 of phase 16's tight-limits set: another chain, so another
     # library (its limits are run-time data); and the native host library.
     ur5_plan = lm_kernel.KernelPlan(parity_hard.tight_ur5(
         ChainSpec.from_urdf_file(asset_path(parity_hard.UR5[0]),
                                  *parity_hard.UR5[1:])), cfg)
-    # bench_ops' UR3e (phase 17).
-    ur3e_plan = lm_kernel.KernelPlan(ChainSpec.from_urdf_file(
-        asset_path(bench_ops.UR3E[0]), *bench_ops.UR3E[1:]), cfg)
+    # The UR3e of phase 9c: one more six-joint chain, its own library.
+    ur3e = Robot.from_urdf_file(asset_path("ur3e.urdf"), "ur_base_link",
+                                "ur_ee_link", device="cuda")
+    ur3e_plan = lm_kernel.KernelPlan(ur3e.spec, cfg)
 
     def gxx_build():
         t = time.perf_counter()
@@ -1826,8 +1680,10 @@ def main() -> int:
                      for name, (q, w, wide, fm) in lm_variants.items()})
         jobs["ur5 speed"] = pool.submit(lm_kernel.load_library,
                                         ur5_plan.header)
-        jobs["ur3e speed"] = pool.submit(lm_kernel.load_library,
-                                         ur3e_plan.header)
+        for fm in (True, False):
+            jobs["ur3e speed" + ("" if fm else " uncontracted")] = \
+                pool.submit(lm_kernel.load_library, ur3e_plan.header,
+                            fmad=fm)
         jobs["fp32_peak"] = pool.submit(bench_fp32_peak.load_library, True)
         jobs["fp32_peak uncontracted"] = pool.submit(
             bench_fp32_peak.load_library, False)
@@ -1966,8 +1822,8 @@ def main() -> int:
           f"in {lone_iter_ms * lone_trips:.3f} ms = {1e3 * lone_iter_ms:.2f} "
           "us per iteration", flush=True)
 
-    # 6. The main path, through the user-facing entry points, in bench.py's
-    # call form.
+    # 6. The main path, through the user-facing entry points, in ikbench's
+    # call form (ikbench/drivers/ik_stream.py).
     def solve():
         return robot.ik_batch(cfg, tr, tt, x0, validate_seeds=False,
                               rescue_overflow=False)
@@ -1993,6 +1849,24 @@ def main() -> int:
           f"solves/s plain path, {lane_iters / B_MAIN:.1f} lane-iters/solve, "
           f"FK err {fk_main:.3g}, launches {launches}", flush=True)
     one_round = res
+
+    # A stream's pass of that form, 8 chained calls with found_count summed
+    # on the device and fetched once, synchronises only at its fetch.
+    def pipelined_pass():
+        acc = None
+        for _ in range(8):
+            c = solve().found_count
+            acc = c if acc is None else acc + c
+        int(acc)
+
+    n_sync = sync_count(pipelined_pass)
+    check(n_sync is None or n_sync == 0, f"a pipelined pass of 8 ik_batch "
+          f"calls synchronised {n_sync} times more than one fetch does")
+    print("pipelined pass (8 chained ik_batch calls, found_count added on "
+          "the device, one fetch): "
+          + ("the profiler saw no CUDA runtime call (not measured)"
+             if n_sync is None else f"{n_sync} synchronisations beyond "
+             "those of one scalar fetch"), flush=True)
 
     # 7. Quality at full width through the facade, then kernel against
     # plain on the same inputs.
@@ -2097,6 +1971,12 @@ def main() -> int:
         max_restarts=12, seed_batch=4, quality_max_successes=1))
     check(torch.equal(capped.found, uncapped.found),
           "the success cap changed the found mask")
+    # Capped Quality at full width: its pose groups on a pair of warps.
+    wide_capped = option_case("Quality (256, 64) cap 8",
+                              qcfg.replace(quality_max_successes=8))
+    wide_capped_success = float(wide_capped.found.float().mean())
+    check(wide_capped_success >= 0.99, f"capped Quality (256, 64) success "
+          f"{wide_capped_success} < 0.99")
     shifted = option_case("restart_offset=64", cfg, restart_offset=64)
     streamed = option_case("lane0_stream", cfg, lane0_stream=True)
     check(not torch.equal(shifted.x, base.x)
@@ -2104,7 +1984,8 @@ def main() -> int:
           "restart_offset or lane0_stream left the solve unchanged")
     print(f"option cases @B={B_OPT}: weights (differs from unweighted), S = "
           f"3, 12, 64, Quality (48, 16), Quality (12, 4) with and without "
-          f"cap 1 (equal found masks), restart_offset=64, lane0_stream: "
+          f"cap 1 (equal found masks), Quality (256, 64) cap 8 (two-warp "
+          f"poses, success {wide_capped_success:.6f}), restart_offset=64, lane0_stream: "
           f"uncontracted kernel bitwise equal to plain in every lane",
           flush=True)
 
@@ -2144,6 +2025,23 @@ def main() -> int:
                  "config": S128, "launches": wide_launches,
                  "success": wide_success, "mask_diff_vs_f64_host": wide_diff,
                  "s": wide_s, "host_f64_s": host_s}
+
+    # 9c. The UR3e, a second six-joint chain: Robot.ik_batch in the main
+    # config, and its uncontracted kernel bitwise equal to plain.
+    utr, utt, ux0 = problem(ur3e, B_OPT, seed=19)
+    lm_kernel.LAUNCHES = 0
+    ur3e_res = ur3e.ik_batch(cfg, utr, utt, ux0, validate_seeds=False,
+                          rescue_overflow=False)
+    check(lm_kernel.LAUNCHES == 1, f"the UR3e's ik_batch launched the "
+          f"kernel {lm_kernel.LAUNCHES} times")
+    ur3e_success = float(ur3e_res.found.float().mean())
+    check(ur3e_success >= 0.99, f"UR3e success {ur3e_success} < 0.99")
+    fk_ur3e = check_solutions(ur3e, ur3e_res, utr, utt, cfg.tol_f, "UR3e")
+    lanes_equal(lm_kernel.solve_kernel(ur3e_plan, utr, utt, ux0, fmad=False),
+                lm_kernel.solve_plain(ur3e_plan, utr, utt, ux0), "UR3e")
+    print(f"UR3e @B={B_OPT} (main config): success {ur3e_success:.6f}, FK "
+          f"err {fk_ur3e:.3g}; uncontracted kernel bitwise equal to plain "
+          "in every lane", flush=True)
 
     # 18. Chains wider than the Panda, and float64 on the card.
     speed_rep = lm_kernel.library_report(*libs["speed"])
@@ -2343,21 +2241,10 @@ def main() -> int:
     paths.append(wide_path)
     paths += dof_paths
 
-    # 16. The native latency path and the success-parity harnesses.
+    # 16. The native latency path, the success-parity harnesses and the C++
+    # example.
     native_paths, native_launches = native_phases(robot, cfg)
     paths += native_paths
-
-    # 17. The benchmark harness, through the scripts a benchmark cell runs.
-    def pipelined_pass():
-        acc = None
-        for _ in range(8):
-            c = solve().found_count
-            acc = c if acc is None else acc + c
-        int(acc)
-
-    harness_path, harness_launches = harness_phase(
-        device_name, card, B_MAIN / main_s, pipelined_pass)
-    paths.append(harness_path)
 
     # 15. The multi-device paths, last: their process groups and ranks come
     # after every single-device measurement.
@@ -2386,7 +2273,6 @@ def main() -> int:
          "sharded_launches": shard_launches,
          "s128_launches": wide_launches,
          "phase16_launches": native_launches,
-         "harness_launches": harness_launches,
          "build_wall_s": build_wall_s, "wide": dof_entry},
         {"name": "lm_solve_runtime_chain", "route": "cuda", "source": lm_src,
          "replaces": "optik_tpu/ops/pallas/lm_kernel.py:303", **rt_entry},

@@ -88,6 +88,27 @@ def test_exact_path_matches_jax(model, ee):
         assert np.all(res.max(axis=1)[ok.numpy()] < lim[ok.numpy()])
 
 
+@pytest.mark.parametrize("rescue", [False, True], ids=["plain", "rescue"])
+def test_constant_twist_matches_jax(rescue):
+    """The Panda under one command for every lane, [0, 0, 0.1, 0, 0, 0] with
+    v_max 0.75 on every joint (the JAX package's diff-IK benchmark
+    workload), from uniform start configurations, with and without the
+    rescue: every lane ok on both sides, alpha and v within the exact
+    path's limits."""
+    jr, tr = robots("panda")
+    rng = np.random.default_rng(4)
+    x0 = rng.uniform(*jr.joint_limits(), size=(16, 7))
+    v_we = np.tile([0.0, 0.0, 0.1, 0.0, 0.0, 0.0], (16, 1))
+    v_max = np.full((16, 7), 0.75)
+    ja, jv, jok = map(np.asarray, jr.diff_ik_batch(x0, v_we, v_max,
+                                                   rescue=rescue))
+    alpha, v, ok = tr.diff_ik_batch(x0, v_we, v_max, rescue=rescue)
+    assert bool(ok.all())
+    np.testing.assert_array_equal(ok.numpy(), jok)
+    np.testing.assert_allclose(alpha.numpy(), ja, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(v.numpy(), jv, rtol=0, atol=1e-7)
+
+
 def test_all_cuts_invalid_lanes_stay_nan_free():
     """The planar chain's Jacobian has rank 3: every cut of an in-range
     command is invalid, t = +inf, and the lane comes out ok=False, alpha=0,

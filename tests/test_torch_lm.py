@@ -51,6 +51,7 @@ from optik_tpu.solver import ik as jax_ik
 from optik_tpu_torch import Robot, SolverConfig
 from optik_tpu_torch.models import ChainSpec
 from optik_tpu_torch.models.synthetic import chain_urdf, mobile_panda_urdf
+from optik_tpu_torch.ops import kinematics as K
 from optik_tpu_torch.ops.cuda import lm_kernel
 from optik_tpu_torch.solver import ik
 
@@ -319,6 +320,20 @@ def test_kernel_wrapper_dispatch_and_checks(panda):
         lm_kernel.launch_lanes(plan, torch.zeros(7, 16),
                                lm_kernel.pack_targets(tr, tt), reseed=False,
                                freeze=True)
+
+
+@pytest.mark.parametrize("entry", ["ik.build_batch_solver",
+                                   "ChainParams.from_spec"])
+def test_plain_loop_constructors_need_a_device(entry):
+    """The plain loop's solver and chain constants name no default device,
+    so a harness that leaves it out fails instead of timing the host."""
+    spec = Robot.from_urdf_file(asset_path("panda.urdf"), "panda_link0",
+                                "panda_hand_tcp", device="cpu").spec
+    with pytest.raises(TypeError, match="device"):
+        if entry == "ik.build_batch_solver":
+            ik.build_batch_solver(spec, SolverConfig(), torch.float64)
+        else:
+            K.ChainParams.from_spec(spec, torch.float64)
 
 
 @pytest.mark.parametrize("device", ["cuda", "cpu"])

@@ -7,10 +7,12 @@ found masks on 32 poses per cell, the 32-iteration control included), and
 its SLSQP column, fed the engine's restart seeds (bitwise the JAX script's
 ``fold_in`` table), must find what the JAX script's SLSQP finds with the
 same restarts on the same poses (N = 8).  ``parity_native.run`` is driven at
-a small size on the CPU.
+a small size on the CPU, and the ``timing`` helpers the harnesses share
+(the solvers' dtype on a device, the host CPU's name) are checked there.
 """
 
 import importlib.util
+import os
 import pathlib
 
 import jax
@@ -25,7 +27,7 @@ from optik_tpu.solver import ik as jax_ik
 
 from optik_tpu_torch import Robot, SolverConfig
 from optik_tpu_torch.benchmarks import parity_hard, parity_native, \
-    parity_scipy
+    parity_scipy, timing
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 N_ENGINE = 32
@@ -186,3 +188,21 @@ def test_parity_native_run_on_cpu():
         r, t = robot.fk_batch(res.x[res.found])
         assert float((r - b.tgt_r[res.found]).abs().max()) <= 2e-3
         assert float((t - b.tgt_t[res.found]).abs().max()) <= 2e-3
+
+
+def test_engine_dtype_is_the_kernels_on_a_card_and_f64_elsewhere():
+    """The harnesses solve at float32 on a CUDA device (the kernel's) and
+    at float64 anywhere else; a device name or a torch.device alike."""
+    assert timing.engine_dtype("cpu") is torch.float64
+    assert timing.engine_dtype(torch.device("cpu")) is torch.float64
+    assert timing.engine_dtype("cuda") is torch.float32
+    assert timing.engine_dtype(torch.device("cuda", 0)) is torch.float32
+
+
+def test_host_cpu_names_the_model_and_the_cores():
+    """What a native latency stands beside: one line, a non-empty model
+    name, then the logical core count."""
+    text = timing.host_cpu()
+    model, sep, cores = text.rpartition(", ")
+    assert sep and cores == f"{os.cpu_count()} logical cores"
+    assert model.strip() and "\n" not in text

@@ -2,13 +2,16 @@
 plus the port's import boundary.
 
 ``ik_batch`` runs the main configuration (Speed, 64 restarts, 8 lanes, 32
-iterations, tol_f 1e-6) at f64 on the CPU through both packages' plain
-paths.  Tolerance for x: 1e-8 (see tests/test_torch_lm.py: operation order
-differs at the last bit and ~30 LM steps amplify it).  ``fk`` runs the
-same float64 operations on both sides: 1e-12.
+iterations, tol_f 1e-6) and five workloads of the JAX package's benchmark
+scripts at f64 on the CPU through both packages' plain paths: found masks,
+iterations and lane-iterations equal, cost within 1e-8 relative.
+Tolerance for x: 1e-8 (see tests/test_torch_lm.py: operation order differs
+at the last bit and ~30 LM steps amplify it); scalar ``ik`` likewise.
+``fk`` runs the same float64 operations on both sides: 1e-12.
 """
 
 import ast
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -22,6 +25,7 @@ import optik_tpu
 from optik_tpu.models import asset_path
 
 import optik_tpu_torch
+from optik_tpu_torch.models import ChainSpec
 from optik_tpu_torch.models.synthetic import mobile_panda_urdf
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -37,22 +41,73 @@ def robots():
                                                  device="cpu"))
 
 
-def test_ik_batch_matches_jax_main_config(robots):
-    jr, tr_ = robots
-    rng = np.random.default_rng(5)
+# The main configuration, then the workloads of the JAX package's
+# benchmark scripts (the root benchmarks/): Quality at 256 restarts on 64
+# lanes, the same under a success cap, the UR5 with every limit at +-pi/2,
+# motion planning and the UR3e, the last three in those scripts' call
+# form.  (arm, mode, config, B, seed, ik_batch keywords, least found)
+QUALITY = dict(max_restarts=256, seed_batch=64, max_iters=48)
+CALL_FORM = dict(validate_seeds=False, rescue_overflow=False)
+IK_CASES = {
+    "panda_main": ("panda", "speed", MAIN, B, 5, {}, B - 1),
+    "panda_quality": ("panda", "quality", QUALITY, 16, 11, {}, 15),
+    "panda_quality_cap8": ("panda", "quality",
+                           dict(QUALITY, quality_max_successes=8), 16, 11,
+                           {}, 15),
+    "ur5_tight": ("ur5_tight", "speed",
+                  dict(max_restarts=64, seed_batch=8, max_iters=48), 16, 12,
+                  CALL_FORM, 15),
+    "motion_planning": ("panda", "speed",
+                        dict(max_restarts=64, seed_batch=8, max_iters=32),
+                        16, 13, CALL_FORM, 15),
+    "ur3e": ("ur3e", "speed", dict(max_restarts=8, max_iters=48), 16, 14,
+             CALL_FORM, 12),
+}
+ARMS = {"ur5_tight": ("ur5.urdf", "base_link", "ee_link"),
+        "ur3e": ("ur3e.urdf", "ur_base_link", "ur_ee_link")}
+
+
+def _arm(name, robots):
+    """Both packages' Robots at f64; the UR5 with every limit at +-pi/2."""
+    if name == "panda":
+        return robots
+    urdf, base, ee = ARMS[name]
+    jr = optik_tpu.Robot.from_urdf_file(asset_path(urdf), base, ee,
+                                        dtype=jnp.float64)
+    if name == "ur5_tight":
+        n = jr.num_positions()
+        jr = optik_tpu.Robot(dataclasses.replace(
+            jr.spec, lower=np.full(n, -np.pi / 2), upper=np.full(n, np.pi / 2)),
+            dtype=jnp.float64)
+    spec = ChainSpec.from_arrays(dataclasses.asdict(jr.spec))
+    return jr, optik_tpu_torch.Robot(spec, dtype=torch.float64, device="cpu")
+
+
+@pytest.mark.parametrize("case", list(IK_CASES))
+def test_ik_batch_matches_jax_main_config(robots, case):
+    arm, mode, kw, b, seed, call, least = IK_CASES[case]
+    jr, tr_ = _arm(arm, robots)
+    rng = np.random.default_rng(seed)
     lo, hi = jr.joint_limits()
-    rot, trans = jr.fk_batch(rng.uniform(lo, hi, size=(B, 7)))
+    n = len(lo)
+    rot, trans = jr.fk_batch(rng.uniform(lo, hi, size=(b, n)))
     rot, trans = np.asarray(rot), np.asarray(trans)
-    x0 = rng.uniform(lo, hi, size=(B, 7))
-    ref = jr.ik_batch(optik_tpu.SolverConfig(**MAIN), rot, trans, x0)
-    got = tr_.ik_batch(optik_tpu_torch.SolverConfig(**MAIN), rot, trans, x0)
+    x0 = rng.uniform(lo, hi, size=(b, n))
+    ref = jr.ik_batch(optik_tpu.SolverConfig.create(mode, **kw), rot, trans,
+                      x0, **call)
+    cfg = optik_tpu_torch.SolverConfig.create(mode, **kw)
+    got = tr_.ik_batch(cfg, rot, trans, x0, **call)
 
     found = np.asarray(ref.found)
-    assert found.sum() >= B - 1
+    assert found.sum() >= least
     np.testing.assert_array_equal(got.found.numpy(), found)
     np.testing.assert_allclose(got.x.numpy()[found], np.asarray(ref.x)[found],
                                rtol=0, atol=1e-8)
-    assert np.all(got.cost.numpy()[found] <= MAIN["tol_f"])
+    np.testing.assert_allclose(got.cost.numpy(), np.asarray(ref.cost),
+                               rtol=1e-8, atol=1e-12)
+    np.testing.assert_array_equal(got.iters.numpy(), np.asarray(ref.iters))
+    assert int(got.lane_iters) == int(ref.lane_iters)
+    assert np.all(got.cost.numpy()[found] <= cfg.tol_f)
     # FK of every found solution reaches its target (cost <= 1e-6 is a
     # residual of ~1e-3).
     r_got, t_got = tr_.fk_batch(got.x[got.found])
@@ -157,21 +212,28 @@ def test_fk_matches_jax(robots):
                                    atol=1e-12)
 
 
-def test_ik_single_pose(robots):
+@pytest.mark.parametrize("kw", [MAIN, dict(max_restarts=8, seed_batch=8,
+                                           max_iters=32)],
+                         ids=["main", "eight_restarts"])
+def test_ik_single_pose(robots, kw):
     jr, tr_ = robots
-    cfg = optik_tpu_torch.SolverConfig(**MAIN)
+    cfg = optik_tpu_torch.SolverConfig(**kw)
     q = tr_.random_configuration(np.random.default_rng(7))
     target = tr_.fk(q)
-    sol = tr_.ik(cfg, target, np.zeros(7).clip(*tr_.joint_limits()))
+    seed = np.zeros(7).clip(*tr_.joint_limits())
+    sol = tr_.ik(cfg, target, seed)
     assert sol is not None
     x, cost = sol
     assert len(x) == 7 and cost <= cfg.tol_f
     np.testing.assert_allclose(tr_.fk(np.array(x)), target, atol=2e-3)
+    # The JAX package's scalar solve reaches the same solution.
+    ref = jr.ik(optik_tpu.SolverConfig(**kw), target, seed)
+    np.testing.assert_allclose(x, ref[0], rtol=0, atol=1e-8)
+    np.testing.assert_allclose(cost, ref[1], rtol=1e-8, atol=1e-12)
     # Unreachable target: None, as in the reference.
     far = target.copy()
     far[:3, 3] += 10.0
-    assert tr_.ik(cfg.replace(max_restarts=8), far,
-                  np.zeros(7).clip(*tr_.joint_limits())) is None
+    assert tr_.ik(cfg.replace(max_restarts=8), far, seed) is None
 
 
 def _error(fn):
@@ -372,8 +434,7 @@ def test_import_adds_no_jax_module():
             "import optik_tpu_torch.native\n"
             "from optik_tpu_torch.benchmarks import parity_native, "
             "parity_hard, parity_scipy\n"
-            "from optik_tpu_torch.benchmarks import bench, bench_workloads, "
-            "bench_latency, bench_scaling, bench_ops\n"
+            "from optik_tpu_torch.benchmarks import exp_lm_schedule, timing\n"
             "after = {m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optik_tpu')}\n"
             "print(sorted(after - before))\n")

@@ -9,6 +9,12 @@ Tolerances:
     +-*/, sqrt and floor, so the two agree to a few f32 ulps of O(1) values.
   * golden fixtures (Pinocchio-derived, stored to ~1e-9): atol 1e-6, the
     JAX package's own tolerance for them (tests/test_math.py, test_fk.py).
+  * ``mat_to_quat``, ``quat_log``, ``mat_log``,
+    ``so3_right_jacobian_from_w``, ``se3_log_from_w``, ``se3_log`` and
+    ``se3_right_jacobian_blocks`` at f64, exact and in kernel math mode, on
+    random rotations and on angles within 1e-6 of 0 and of pi: relative
+    1e-10 (absolute 1e-12 on components near 0), as tests/test_torch_math.py
+    holds ``math/so3``.
 """
 
 import dataclasses
@@ -237,3 +243,124 @@ def test_se3_log_and_right_jacobian_match_golden_fixture():
     flat = np.array(_golden("test_math_outputs_se3_right_jacobian.json"))
     want = np.swapaxes(flat.reshape(-1, 6, 6), -1, -2)  # column-major
     np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+# --- the log and right-Jacobian functions, at and near 0 and pi -------------
+
+
+def _rotation_vectors(rng):
+    """Rotation vectors: random angles in (0, pi), and angles 0, 1e-7,
+    1e-6, pi - 1e-6, pi - 1e-7 and pi about random axes."""
+    n_rand = 24
+    special = np.array([0.0, 1e-7, 5e-7, 1e-6, np.pi - 1e-6, np.pi - 1e-7,
+                        np.pi])
+    angles = np.concatenate([rng.uniform(0.0, np.pi, n_rand), special])
+    axes = rng.standard_normal((angles.size, 3))
+    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+    return axes * angles[:, None]
+
+
+def _rotations(w):
+    """Exact Rodrigues at f64: (N, 3, 3)."""
+    theta = np.linalg.norm(w, axis=1)
+    k = w / np.where(theta > 0, theta, 1.0)[:, None]
+    kx = np.zeros((w.shape[0], 3, 3))
+    kx[:, 0, 1], kx[:, 0, 2] = -k[:, 2], k[:, 1]
+    kx[:, 1, 0], kx[:, 1, 2] = k[:, 2], -k[:, 0]
+    kx[:, 2, 0], kx[:, 2, 1] = -k[:, 1], k[:, 0]
+    s, c = np.sin(theta)[:, None, None], np.cos(theta)[:, None, None]
+    return np.eye(3) + s * kx + (1 - c) * kx @ kx
+
+
+def _quaternions(w, rng):
+    """Unit quaternions (x, y, z, w) of the rotation vectors, on both
+    covers (a random half negated)."""
+    theta = np.linalg.norm(w, axis=1)
+    k = w / np.where(theta > 0, theta, 1.0)[:, None]
+    q = np.concatenate([k * np.sin(theta / 2)[:, None],
+                        np.cos(theta / 2)[:, None]], axis=1)
+    return q * np.where(rng.random(w.shape[0]) < 0.5, -1.0, 1.0)[:, None]
+
+
+def _comps_of(a, lib):
+    """(N, ...) array -> nested lists of (N,) components."""
+    if a.ndim == 1:
+        return lib(a)
+    return [_comps_of(a[:, i], lib) for i in range(a.shape[1])]
+
+
+def _flat(v):
+    if isinstance(v, (list, tuple)):
+        return np.concatenate([_flat(u) for u in v])
+    return np.asarray(v, dtype=np.float64).reshape(1, -1)
+
+
+SOA_FUNCTIONS = {
+    "mat_to_quat": lambda m, r, w, t, q: m.mat_to_quat(r),
+    "quat_log": lambda m, r, w, t, q: m.quat_log(q),
+    "mat_log": lambda m, r, w, t, q: m.mat_log(r),
+    "so3_right_jacobian_from_w":
+        lambda m, r, w, t, q: m.so3_right_jacobian_from_w(w),
+    "se3_log_from_w": lambda m, r, w, t, q: m.se3_log_from_w(w, t),
+    "se3_log": lambda m, r, w, t, q: m.se3_log(r, t),
+    "se3_right_jacobian_blocks":
+        lambda m, r, w, t, q: m.se3_right_jacobian_blocks(w, t),
+}
+# mat_to_quat has no transcendental, so no kernel math mode.
+SOA_CASES = [(name, approx) for name in SOA_FUNCTIONS
+             for approx in (False, True)
+             if not (approx and name == "mat_to_quat")]
+
+
+class _PortSoa:
+    """The port's functions with the kernel-math flag bound, under the JAX
+    module's call signatures."""
+
+    def __init__(self, approx):
+        self.approx = approx
+
+    def __getattr__(self, name):
+        fn = getattr(soa, name)
+        if name == "mat_to_quat":
+            return fn
+        return lambda *a: fn(*a, approx=self.approx)
+
+
+@pytest.mark.parametrize("name,approx", SOA_CASES,
+                         ids=[f"{n}-{'kernel' if a else 'exact'}"
+                              for n, a in SOA_CASES])
+def test_soa_function_matches_jax(name, approx):
+    fn = SOA_FUNCTIONS[name]
+    rng = np.random.default_rng(11)
+    w = _rotation_vectors(rng)
+    r, q = _rotations(w), _quaternions(w, rng)
+    t = rng.standard_normal((w.shape[0], 3))
+    args = (r, w, t, q)
+    got = fn(_PortSoa(approx), *(_comps_of(a, torch.tensor) for a in args))
+    if approx:
+        with jsoa.approx_atan2():
+            want = fn(jsoa, *(_comps_of(a, jnp.asarray) for a in args))
+    else:
+        want = fn(jsoa, *(_comps_of(a, jnp.asarray) for a in args))
+    got, want = _flat(got), _flat(want)
+    assert got.shape == want.shape
+    # Kernel math's sin(pi) is exactly 0, so at an angle of exactly pi the
+    # inverse right Jacobian's coefficient is 0/0 on both sides; nowhere
+    # else is a component not finite.
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    assert np.isfinite(got).all() or (approx and "jacobian" in name)
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
+
+
+def test_soa_functions_on_the_special_angles_are_right():
+    """The Taylor branches (the identity) and the double cover (pi): the
+    log of an exact rotation returns its rotation vector."""
+    rng = np.random.default_rng(12)
+    w = _rotation_vectors(rng)
+    far = np.linalg.norm(w, axis=1) < np.pi - 1e-6  # log is unique there
+    got = _flat(soa.mat_log(_comps_of(_rotations(w), torch.tensor))).T
+    np.testing.assert_allclose(got[far], w[far], rtol=0, atol=1e-9)
+    got_q = _flat(soa.quat_log(_comps_of(_quaternions(w, rng),
+                                      torch.tensor))).T
+    np.testing.assert_allclose(got_q[far], w[far], rtol=0, atol=1e-9)
+    assert np.allclose(np.linalg.norm(got[~far], axis=1), np.pi, atol=1e-6)
